@@ -1,0 +1,21 @@
+from repro_torch.checkpoint.npz import (
+    all_steps,
+    latest_step,
+    load_flat,
+    restore,
+    restore_jax_params,
+    save,
+    step_path,
+    unflatten,
+)
+
+__all__ = [
+    "all_steps",
+    "latest_step",
+    "load_flat",
+    "restore",
+    "restore_jax_params",
+    "save",
+    "step_path",
+    "unflatten",
+]

@@ -1,0 +1,257 @@
+"""Model assembly (PyTorch port of ``repro.models.transformer``), dense and
+``local_attn`` paths.
+
+Parameters are plain dicts of tensors:
+
+    params = {
+      "embed": {"table": [V, d]},          # tied unembedding
+      "layers": [layer_0, ..., layer_{n-1}],
+      "final_norm": {"scale": [d]},
+    }
+
+The reference stacks repeated pattern blocks for ``jax.lax.scan``; here the
+layers are a Python list in global order (``params_from_jax`` unstacks).
+Caches are a list with one dict per layer, every leaf with the batch on
+axis 0.
+
+Entry points: ``prefill(params, batch, cfg, cache_len) -> (logits, cache)``
+and ``decode_step(params, tokens, cache, pos, cfg) -> (logits, cache)``,
+where ``pos`` is an int or a ``[B]`` long tensor (one position per row, as
+the reference engine's per-slot vmap gives).  MoE, mamba2, rglru,
+encoder-decoder and VLM families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_attention,
+    apply_mlp,
+    apply_norm,
+    decode_attention,
+    embed,
+    init_attention,
+    init_attn_cache,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    row_positions,
+    unembed,
+)
+
+__all__ = [
+    "init_model",
+    "init_cache",
+    "prefill",
+    "decode_step",
+    "param_count",
+    "params_from_jax",
+]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    unported = []
+    if cfg.num_experts > 0:
+        unported.append("MoE")
+    mixers = {cfg.mixer_for_layer(i) for i in range(cfg.num_layers)}
+    unported += sorted(mixers & {"mamba2", "rglru"})
+    if cfg.is_encdec:
+        unported.append("encoder-decoder")
+    if cfg.num_patches > 0:
+        unported.append("VLM")
+    if unported:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(unported)} not yet ported to repro_torch; see ROADMAP.md"
+        )
+
+
+def _pattern_split(cfg: ModelConfig) -> tuple[int, int, int]:
+    """-> (prefix_layers, n_blocks, suffix_layers), as the reference stacks them."""
+    p = len(cfg.layer_pattern)
+    body = cfg.num_layers - cfg.first_dense_layers
+    return cfg.first_dense_layers, body // p, body % p
+
+
+# -------------------------------------------------------------------- init
+def init_model(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | None = None,
+               device="cuda"):
+    """Random weights (normal / sqrt(fan_in), ones for norms) from a seeded
+    ``torch.Generator`` on ``device``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {"norm1": init_norm(cfg, dev), "mixer": init_attention(gen, cfg, dev)}
+        if cfg.d_ff > 0:
+            layer["norm2"] = init_norm(cfg, dev)
+            layer["ffn"] = init_mlp(gen, cfg, dev)
+        layers.append(layer)
+    return {"embed": init_embedding(gen, cfg, dev), "layers": layers,
+            "final_norm": init_norm(cfg, dev)}
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameter count of the model ``init_model`` builds (no allocation)."""
+    _check_supported(cfg)
+    d, H, KV, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
+    norm = d * (2 if cfg.norm_type == "layernorm" else 1)
+    attn = d * H * hd + 2 * d * KV * hd + H * hd * d
+    if cfg.use_bias:
+        attn += H * hd + 2 * KV * hd + d
+    if cfg.qk_norm:
+        attn += 2 * hd
+    mlp = 0
+    if f > 0:
+        mlp = 3 * d * f if cfg.mlp_type == "swiglu" else 2 * d * f + (f + d if cfg.use_bias else 0)
+        mlp += norm
+    return cfg.vocab_size * d + norm + cfg.num_layers * (norm + attn + mlp)
+
+
+# ------------------------------------------------------------------- cache
+def _layer_cache_len(cfg: ModelConfig, kind: str, length: int) -> int:
+    if kind == "local_attn":
+        return min(cfg.sliding_window, length)
+    if cfg.long_context_window is not None and length > cfg.long_context_window:
+        return cfg.long_context_window
+    return length
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int, device="cuda"):
+    """Decode cache for ``length`` context: one dict per layer."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return [
+        init_attn_cache(cfg, batch, _layer_cache_len(cfg, cfg.mixer_for_layer(i), length), dev)
+        for i in range(cfg.num_layers)
+    ]
+
+
+# ----------------------------------------------------------------- forward
+def _decode_window(cfg: ModelConfig, kind: str, cache: dict) -> int | None:
+    if kind == "local_attn":
+        return cfg.sliding_window
+    return cache["k"].shape[1] if cfg.long_context_window is not None else None
+
+
+def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
+    """One-token decode.  tokens: [B, 1]; pos: int or [B] long (context
+    length so far, per row).  Returns (logits [B, 1, V], cache) with the
+    cache updated in place."""
+    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    pos = row_positions(pos, x.shape[0], x.device)
+    for i, (p, c) in enumerate(zip(params["layers"], cache)):
+        kind = cfg.mixer_for_layer(i)
+        h = apply_norm(p["norm1"], x)
+        y, _ = decode_attention(p["mixer"], h, c, pos, cfg, window=_decode_window(cfg, kind, c))
+        x = x + y
+        if "ffn" in p:
+            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
+    x = apply_norm(params["final_norm"], x)
+    return unembed(params["embed"], x), cache
+
+
+def _prefill_window(cfg: ModelConfig, kind: str, cache_len: int) -> int | None:
+    if kind == "local_attn":
+        return cfg.sliding_window
+    lcw = cfg.long_context_window
+    return lcw if lcw is not None and cache_len > lcw else None
+
+
+def _store_prompt(c: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write prompt K/V [B, S, KV, hd] into a fresh layer cache, in place.
+
+    Quantized caches store int8 values and scales.  A prompt longer than the
+    ring buffer keeps its last L keys, rolled by S % L so that absolute
+    position p sits in slot p % L.
+    """
+    S, L = k.shape[1], c["k"].shape[1]
+    if "k_scale" in c:
+        (k, k_sc), (v, v_sc) = ops.quantize_kv(k), ops.quantize_kv(v)
+        leaves = {"k": k, "v": v, "k_scale": k_sc, "v_scale": v_sc}
+    else:
+        leaves = {"k": k, "v": v}
+    for name, src in leaves.items():
+        dst = c[name]
+        if S <= L:
+            dst[:, :S] = src.to(dst.dtype)
+        else:
+            dst.copy_(torch.roll(src[:, S - L:].to(dst.dtype), S % L, dims=1))
+
+
+def prefill(params, batch, cfg: ModelConfig, cache_len: int):
+    """Full forward over the prompt that also returns a primed decode cache.
+
+    batch["tokens"]: [B, S <= cache_len].  Returns (logits [B, S, V], cache).
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
+    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    for i, (p, c) in enumerate(zip(params["layers"], cache)):
+        kind = cfg.mixer_for_layer(i)
+        h = apply_norm(p["norm1"], x)
+        y, (k, v) = apply_attention(p["mixer"], h, cfg, causal=True,
+                                    window=_prefill_window(cfg, kind, cache_len), return_kv=True)
+        _store_prompt(c, k, v)
+        x = x + y
+        if "ffn" in p:
+            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
+    x = apply_norm(params["final_norm"], x)
+    return unembed(params["embed"], x), cache
+
+
+# -------------------------------------------------------- reference params
+def _to_tensor(arr, device) -> torch.Tensor:
+    """numpy leaf -> tensor; bf16 leaves (ml_dtypes ``bfloat16``, or the
+    2-byte void type ``np.load`` gives without ml_dtypes) are reinterpreted
+    through int16, so ml_dtypes is not needed."""
+    arr = np.array(arr)  # a writable, contiguous copy
+    if arr.dtype.itemsize == 2 and (arr.dtype.kind == "V" or arr.dtype.name == "bfloat16"):
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
+    """The reference's parameter tree (leaves as numpy arrays) -> the port's.
+
+    Stacked ``blocks[pos]`` leaves [n_blocks, ...] unstack into global layer
+    ``pre + b * p_len + pos``; ``prefix`` and ``suffix`` layers keep their
+    places.
+    """
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    want = (cfg.vocab_size, cfg.d_model)
+    if tuple(np.shape(tree["embed"]["table"])) != want:
+        raise ValueError(f"embed.table shape {np.shape(tree['embed']['table'])} != {want} "
+                         f"of {cfg.name}: the checkpoint is of another model")
+    pre, nb, suf = _pattern_split(cfg)
+    p_len = len(cfg.layer_pattern)
+    layers: list = [None] * cfg.num_layers
+    for i, p in enumerate(tree.get("prefix", [])):
+        layers[i] = _map_tree(p, lambda a: _to_tensor(a, dev))
+    if nb > 0:
+        for pos, stacked in enumerate(tree["blocks"]):
+            for b in range(nb):
+                layers[pre + b * p_len + pos] = _map_tree(stacked, lambda a, b=b: _to_tensor(a[b], dev))
+    for s, p in enumerate(tree.get("suffix", [])):
+        layers[pre + nb * p_len + s] = _map_tree(p, lambda a: _to_tensor(a, dev))
+    return {
+        "embed": _map_tree(tree["embed"], lambda a: _to_tensor(a, dev)),
+        "layers": layers,
+        "final_norm": _map_tree(tree["final_norm"], lambda a: _to_tensor(a, dev)),
+    }

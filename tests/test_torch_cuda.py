@@ -1,0 +1,179 @@
+"""repro_torch on the card: each CUDA kernel against its plain version, and
+the reduced model and engine with the kernels against the plain path.
+
+Every test here needs a CUDA card and skips without one.  The file imports
+no JAX (the card's machine has none); run it there with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 with TF32 off ``atol 2e-5, rtol 1e-4`` for kernels (same
+math, other summation order), ``atol 2e-4, rtol 1e-3`` for model logits (as
+the reference's kernel-flag test); bf16 ``atol 1e-4, rtol 1e-2`` (both sides
+reduce in f32 and round once to bf16: at most one rounding step, 2**-7 of
+the value, apart).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode as kd
+from repro_torch.kernels import flash_attention as kf
+from repro_torch.kernels import sliding_window as ksw
+from repro_torch.kernels.ref import quantize_kv_ref
+from repro_torch.models import transformer as T
+from repro_torch.serving import Request, ServeEngine
+
+pytestmark = pytest.mark.cuda
+
+F32 = dict(atol=2e-5, rtol=1e-4)
+BF16 = dict(atol=1e-4, rtol=1e-2)
+LOGITS = dict(atol=2e-4, rtol=1e-3)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine, see the module docstring)")
+    from repro_torch import resolve_device
+
+    return resolve_device("cuda")  # also pins TF32 off for the f32 references
+
+
+def _randn(gen, *shape, dtype, device):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,S,window,hd", [
+    (torch.float32, 200, None, 128), (torch.bfloat16, 512, None, 128),
+    (torch.bfloat16, 300, 100, 128), (torch.float32, 77, 13, 64),
+])
+def test_flash_kernel_matches_plain(cuda, dtype, S, window, hd):
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (_randn(g, 2, S, 4, hd, dtype=dtype, device=cuda) for _ in range(3))
+    before = kf.launches.count
+    out = kf.flash_attention(q, k, v, causal=True, window=window)
+    assert kf.launches.count == before + 1
+    ref = kf.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("Sq,Sk", [(96, 96), (40, 100)])
+def test_flash_kernel_non_causal(cuda, Sq, Sk):
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    q = _randn(g, 2, Sq, 4, 64, dtype=torch.float32, device=cuda)
+    k, v = (_randn(g, 2, Sk, 4, 64, dtype=torch.float32, device=cuda) for _ in range(2))
+    out = kf.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(out, kf.flash_attention_plain(q, k, v, causal=False), **F32)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q/k/v as head slices of one fused [B, S, 3H, hd] tensor (non-contiguous
+    rows) give the same result as contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = _randn(g, 2, 150, 12, 64, dtype=torch.float32, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
+    out = kf.flash_attention(q, k, v, causal=True)
+    ref = kf.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("S,window", [(640, 256), (333, 50)])
+def test_sliding_window_kernel_matches_plain(cuda, S, window):
+    g = torch.Generator(device=cuda).manual_seed(window)
+    q, k, v = (_randn(g, 1, S, 4, 128, dtype=torch.float32, device=cuda) for _ in range(3))
+    before = ksw.launches.count
+    out = ksw.sliding_window_attention(q, k, v, window=window)
+    assert ksw.launches.count == before + 1
+    torch.testing.assert_close(out, ksw.sliding_window_attention_plain(q, k, v, window=window),
+                               **F32)
+
+
+def _decode_inputs(device, B=3, L=200, KV=2, G=4, hd=128):
+    rng = np.random.default_rng(L)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+               for s in ((B, KV, G, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    pos = torch.tensor([17, 3 * L + 5, 0], device=device)  # linear, wrapped ring, one slot
+    slot = torch.remainder(pos, L)
+    age = torch.remainder(slot[:, None] - torch.arange(L, device=device)[None], L)
+    return q, k, v, age < torch.clamp(pos + 1, max=L)[:, None]
+
+
+@pytest.mark.parametrize("quantized,hd", [(False, 128), (True, 128), (False, 64), (True, 64)])
+def test_decode_kernel_matches_plain(cuda, quantized, hd):
+    q, k, v, valid = _decode_inputs(cuda, hd=hd)
+    kw = {}
+    if quantized:
+        (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    counter = kd.launches_int8 if quantized else kd.launches
+    before = counter.count
+    out = kd.decode_attention(q, k, v, valid, **kw)
+    assert counter.count == before + 1
+    torch.testing.assert_close(out, kd.decode_attention_plain(q, k, v, valid, **kw), **F32)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kf.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        kf.flash_attention(q.half(), q.half(), q.half())
+    qd = torch.zeros(1, 2, 1, 64, device=cuda)
+    kc = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.decode_attention(qd, kc.transpose(1, 2).contiguous().transpose(1, 2), kc,
+                            torch.ones(1, 8, dtype=torch.bool, device=cuda))
+
+
+def _reduced(**kw):
+    return dataclasses.replace(get_config("qwen3-1.7b").reduced(layers=2), **kw)
+
+
+@pytest.mark.parametrize("cache_len", [64, 12])
+def test_model_kernels_match_plain_path(cuda, cache_len):
+    """Reduced qwen3 in f32 (hd 64): prefill + decode with the kernels
+    against the plain path; cache_len 12 < 16 keeps a linear cache, 64 runs
+    the windowed prefill and a wrapping ring buffer."""
+    cfg = _reduced()
+    params = T.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    outs = {}
+    _build.reset_launch_counts()
+    for knob in (None, "flash"):
+        c = dataclasses.replace(cfg, attn_kernel=knob)
+        logits, cache = T.prefill(params, {"tokens": toks}, c, cache_len)
+        seq = [logits]
+        tok = torch.argmax(logits[:, -1:], -1)
+        for i in range(min(cache_len - 10, 20)):
+            logits, cache = T.decode_step(params, tok, cache, 10 + i, c)
+            seq.append(logits)
+            tok = torch.argmax(logits, -1)
+        outs[knob] = seq
+    for a, b in zip(outs["flash"], outs[None]):
+        torch.testing.assert_close(a, b, **LOGITS)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers and counts["decode_attention"] > 0
+
+
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_engine_kernels_match_plain_engine(cuda, quantized_kv):
+    cfg = _reduced(long_context_window=None, quantized_kv=quantized_kv)
+    params = T.init_model(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 9, 5, 13, 7)]
+    prompts[4] = prompts[0]  # admitted after the tick-0 burst: a prefix-cache hit
+    runs = {}
+    for knob in (None, "flash"):
+        reqs = [Request(prompt=list(p), max_new_tokens=5) for p in prompts]
+        eng = ServeEngine(dataclasses.replace(cfg, attn_kernel=knob), params, max_slots=3,
+                          cache_len=32, prompt_bucket=8, device=cuda)
+        eng.run(reqs)
+        assert all(r.done for r in reqs) and eng.prefix_hits == 1
+        runs[knob] = [(r.output, r.admit_tick, r.finish_tick) for r in reqs]
+    assert runs["flash"] == runs[None]
