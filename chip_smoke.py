@@ -3,21 +3,34 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
+    python3 chip_smoke.py --phases 1,2,8,9   # kernels, one round, the trainer
+
 Phases (any failure exits non-zero):
   1. card, versions, and an nvcc build of every kernel from ``csrc/``;
-  2. each kernel against its plain PyTorch version at the serving slice's
-     shapes: max error, tolerance, kernel / plain / library ms, and bound;
+  2. each kernel against its plain PyTorch version at the main paths'
+     shapes: max error, tolerance, kernel / plain / library ms, and bound
+     (attention at the serving shapes; quantize, dequantize, fused encode
+     and fused mix at qwen3-1.7b's largest gossip chunk, integer outputs
+     exactly equal);
   3. full-width qwen3-1.7b (random seeded weights): prefill + 16 decode steps
      with ``attn_kernel="flash"`` against ``attn_kernel=None``;
   4. ``ServeEngine`` at full width, bf16 and int8 KV caches;
   5. one long-context request through the sliding-window prefill and the
      ring-buffer decode;
   6. the port's ``launch/serve.py`` batch mode;
-  7. torch.profiler over eight decode ticks: device time by kernel.
-Phases 4-6 are the main path: launch counters are zeroed just before each
-and read just after, and every kernel the phase runs must have launched.
-The line before the last is the kernels' JSON summary; the last line is the
-run's JSON status.
+  7. torch.profiler over eight decode ticks: device time by kernel;
+  8. one CHOCO round on the largest chunk at full width, packed path
+     (quantize / dequantize kernels) against fused path (fused kernels);
+  9. the port's ``launch/train.py``: 3 AD-GDA rounds of full-width
+     qwen3-1.7b on 4 nodes with ``kq4b`` ring gossip, packed then fused,
+     with one round under torch.profiler each;
+ 10. the quickstart experiment (10 nodes, AD-GDA against CHOCO-SGD, 600
+     rounds, ``kq4b`` fused gossip): AD-GDA's worst accuracy must not fall
+     below CHOCO-SGD's.
+Phases 4-6 and 9 are the main paths: launch counters are zeroed just before
+each run and read just after, and every kernel the run goes through must
+have launched.  The line before the last is the kernels' JSON summary; the
+last line is the run's JSON status.
 """
 from __future__ import annotations
 
@@ -43,6 +56,10 @@ PEAK_BYTES = 3.35e12
 # covers f32 summation-order noise on outputs near zero
 TOL = {"bfloat16": dict(atol=1e-4, rtol=1e-2), "float32": dict(atol=2e-5, rtol=1e-4)}
 L2_BYTES = 50 * 2**20
+# kernels by main path: the serving phases (4-6) and the trainer (9)
+SERVING_KERNELS = ("flash_attention", "sliding_window_attention", "decode_attention",
+                   "decode_attention_int8")
+GOSSIP_KERNELS = ("quantize", "dequantize", "fused_encode", "fused_mix")
 
 
 def log(msg: str) -> None:
@@ -450,10 +467,391 @@ def profile_decode(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------- gossip kernels (phase 2)
+QWEN_CHUNK_ROWS = 131072  # wq/wo chunk: 4 layers x 2048 x 16 x 128 = 2**24 elements
+
+
+def _exact(label, a, b, failures) -> float:
+    """Integer (or bit-exact float) outputs: equal element for element."""
+    import torch
+
+    same = a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+    err = 0.0 if same or not a.is_floating_point() else float((a.float() - b.float()).abs().max())
+    log(f"  {label}: {'exactly equal' if same else 'DIFFERENT'}"
+        + ("" if same else f" (shapes {tuple(a.shape)}/{tuple(b.shape)}, max err {err:.3e})"))
+    if not same:
+        failures.append(label)
+    return err
+
+
+def check_gossip_kernels(dev) -> dict:
+    """Kernels 5-8 against their plain versions at the trainer's largest
+    gossip chunk (qwen3-1.7b wq: 2**24 elements per node, m = 4, bf16)."""
+    import torch
+
+    from repro_torch.kernels import choco_fused as kc
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels.ref import encode_scale, f32_full, tau_for
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    failures: list[str] = []
+    records: dict[str, dict] = {}
+    R, L, m = QWEN_CHUNK_ROWS, 128, 4
+    n = R * L
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev, dtype=torch.float32)
+
+    # -- quantize / dequantize: one node's chunk [R, 128] f32
+    for bits in (4, 8, 1):
+        x, xi = randn(R, L), rand(R, L)
+        norm = torch.linalg.vector_norm(x).reshape(1)
+        lvl, sign = kq.quantize(x, xi, norm, bits)
+        plvl, psign = kq.quantize_plain(x, xi, norm, bits)
+        _exact(f"quantize bits={bits} [{R},{L}] levels", lvl, plvl, failures)
+        _exact(f"quantize bits={bits} [{R},{L}] signs", sign, psign, failures)
+        scale = norm / f32_full(norm, (1 << bits) * tau_for(n, bits))
+        out = kq.dequantize(lvl, sign, scale, bits)
+        dq_err = _exact(f"dequantize bits={bits} [{R},{L}]", out,
+                        kq.dequantize_plain(lvl, sign, scale, bits), failures)
+        if bits != 4:
+            continue
+        make = lambda: (randn(R, L), rand(R, L), norm)
+        sets = copies_past_l2(make, n * 8)
+        ms = time_ms(lambda a, b_, c: kq.quantize(a, b_, c, 4), sets, 20)
+        plain_ms = time_ms(lambda a, b_, c: kq.quantize_plain(a, b_, c, 4), sets, 5)
+        b_ms, b_by = bound(6 * n, n * (8 + 5 / 8), "float32")
+        records["quantize"] = dict(
+            name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:80", max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"[{R},{L}] f32, 4 bits")
+        dsets = [kq.quantize(*a, 4) + (scale,) for a in sets]
+        ms = time_ms(lambda a, b_, c: kq.dequantize(a, b_, c, 4), dsets, 20)
+        plain_ms = time_ms(lambda a, b_, c: kq.dequantize_plain(a, b_, c, 4), dsets, 5)
+        b_ms, b_by = bound(2 * n, n * (5 / 8 + 4), "float32")
+        records["dequantize"] = dict(
+            name="dequantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:110", max_abs_err=dq_err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"[{R},{L}] u8 payload -> f32, 4 bits")
+        del sets, dsets
+
+    # -- fused encode: [m, R, 128] bf16, with and without the digest
+    def enc_inputs(dtype=torch.bfloat16, bits=4):
+        tn, hat = randn(m, R, L, dtype=dtype), randn(m, R, L, dtype=dtype)
+        norms = torch.linalg.vector_norm((tn - hat).float().reshape(m, -1), dim=1)
+        scales = torch.stack([encode_scale(norms, bits),
+                              norms / f32_full(norms, (1 << bits) * tau_for(n, bits))], 1)
+        return tn, hat, rand(m, R, L), scales
+
+    args = enc_inputs()
+    for digest in (False, True):
+        out = kc.fused_encode(*args, 4, with_digest=digest)
+        ref = kc.fused_encode_plain(*args, 4, with_digest=digest)
+        tag = f"fused_encode{' +digest' if digest else ''} [{m},{R},{L}] bf16"
+        for part, a, b in zip(("levels", "signs", "hat_new", "digest"), out, ref):
+            _exact(f"{tag} {part}", a, b, failures)
+    # round trip: the fused pass's payload is quantize's, and (f32, hat = 0)
+    # its hat_new - hat is dequantize(quantize(resid))
+    tn, hat, xi, scales = args
+    resid = (tn - hat).float()
+    norms = torch.linalg.vector_norm(resid.reshape(m, -1), dim=1)
+    lvl, sign, _ = kc.fused_encode(tn, hat, xi, scales, 4)
+    for i in (0, m - 1):
+        ql, qs = kq.quantize(resid[i], xi[i], norms[i], 4)
+        _exact(f"round trip node {i}: quantize(resid) levels == fused_encode levels", ql, lvl[i],
+               failures)
+        _exact(f"round trip node {i}: quantize(resid) signs == fused_encode signs", qs, sign[i],
+               failures)
+    tn32, zeros = tn.float(), torch.zeros(m, R, L, device=dev)
+    norms32 = torch.linalg.vector_norm(tn32.reshape(m, -1), dim=1)
+    sc32 = torch.stack([encode_scale(norms32, 4),
+                        norms32 / f32_full(norms32, 16 * tau_for(n, 4))], 1)
+    l32, s32, h32 = kc.fused_encode(tn32, zeros, xi, sc32, 4)
+    for i in (0, m - 1):
+        ql, qs = kq.quantize(tn32[i], xi[i], norms32[i], 4)
+        _exact(f"round trip node {i} f32: dequantize(quantize(x)) == hat_new - hat",
+               kq.dequantize(ql, qs, sc32[i, 1], 4), h32[i] - zeros[i], failures)
+    del tn32, zeros, l32, s32, h32, resid
+    sets = copies_past_l2(enc_inputs, m * n * 8)
+    ms = time_ms(lambda a, b_, c, d: kc.fused_encode(a, b_, c, d, 4), sets, 10)
+    plain_ms = time_ms(lambda a, b_, c, d: kc.fused_encode_plain(a, b_, c, d, 4), sets, 3)
+    b_ms, b_by = bound(8 * m * n, m * n * (2 + 2 + 4 + 2 + 5 / 8), "float32")
+    records["fused_encode"] = dict(
+        name="fused_encode", route="cuda", source="src/repro_torch/csrc/choco_fused.cu",
+        replaces="src/repro/kernels/choco_fused.py:165", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"[{m},{R},{L}] bf16, 4 bits")
+    del sets, args
+
+    # -- fused mix: K = 3 ring shifts (the round's launch reads the unrolled
+    # payload with node offsets), K = 8 through the rolled signature
+    def mix_inputs(K):
+        lvl = torch.randint(0, 256, (m, R // 2, L), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+        sign = torch.randint(0, 256, (m, R // 8, L), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+        return lvl, sign, randn(m, R, L), rand(K, m) * 1e-3
+
+    ring = [0, 1, -1]
+    lvl, sign, s0, ws = mix_inputs(3)
+    rl = torch.stack([torch.roll(lvl, sh, 0) for sh in ring])
+    rs = torch.stack([torch.roll(sign, sh, 0) for sh in ring])
+    want = kc.fused_mix_plain(rl, rs, s0, ws, 4)
+    mix_err = _exact(f"fused_mix K=3 rolled [{m},{R},{L}] f32", kc.fused_mix(rl, rs, s0, ws, 4),
+                     want, failures)
+    _exact(f"fused_mix K=3 unrolled with node offsets [{m},{R},{L}] f32",
+           kc.fused_mix_shifted(lvl, sign, s0.clone(), ws, ring, 4), want, failures)
+    _exact(f"fused_mix K=3 [{m},{R},{L}] bf16 s",
+           kc.fused_mix(rl, rs, s0.to(torch.bfloat16), ws, 4),
+           kc.fused_mix_plain(rl, rs, s0.to(torch.bfloat16), ws, 4), failures)
+    del rl, rs, want
+    shifts8 = list(range(8))
+    lvl8, sign8, s8, ws8 = mix_inputs(8)
+    rl8 = torch.stack([torch.roll(lvl8, sh % m, 0) for sh in shifts8])
+    rs8 = torch.stack([torch.roll(sign8, sh % m, 0) for sh in shifts8])
+    _exact(f"fused_mix K=8 rolled [{m},{R},{L}] f32", kc.fused_mix(rl8, rs8, s8, ws8, 4),
+           kc.fused_mix_plain(rl8, rs8, s8, ws8, 4), failures)
+    del rl8, rs8, lvl8, sign8, s8, ws8
+    sets = copies_past_l2(lambda: mix_inputs(3), m * n * 8)
+    ms = time_ms(lambda a, b_, c, d: kc.fused_mix_shifted(a, b_, c, d, ring, 4), sets, 10)
+
+    def plain_mix(a, b_, c, d):
+        rl_ = torch.stack([torch.roll(a, sh, 0) for sh in ring])
+        rs_ = torch.stack([torch.roll(b_, sh, 0) for sh in ring])
+        return kc.fused_mix_plain(rl_, rs_, c, d, 4)
+
+    plain_ms = time_ms(plain_mix, sets, 3)
+    b_ms, b_by = bound(2 * 3 * m * n, m * n * (3 * 5 / 8 + 4 + 4), "float32")
+    records["fused_mix"] = dict(
+        name="fused_mix", route="cuda", source="src/repro_torch/csrc/choco_fused.cu",
+        replaces="src/repro/kernels/choco_fused.py:228", max_abs_err=mix_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"[{m},{R},{L}] f32 s, K=3 ring shifts, 4 bits")
+    del sets
+    torch.cuda.synchronize()
+    for r in records.values():
+        log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of the bound")
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"gossip kernels disagree with their plain versions: {failures}")
+    return records
+
+
+# ------------------------------------------------------------------ phase 8
+def round_full_width(dev) -> None:
+    """One CHOCO round on qwen3-1.7b's largest gossip chunk, [4, 131072,
+    128] bf16 (4 wq layers per node), packed against fused, same noise."""
+    import torch
+
+    from repro_torch.core import gossip
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelQuantization
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    m, R, L = 4, QWEN_CHUNK_ROWS, 128
+    bf = torch.bfloat16
+
+    def randn(scale):
+        return (torch.randn(m, R, L, generator=gen, device=dev) * scale).to(bf)
+
+    theta, hat, s = randn(0.02), randn(0.02), randn(0.02)
+    xi = torch.rand(m, R, L, generator=gen, device=dev)
+    topo, comp = ring(m), KernelQuantization(4)
+    gamma = 0.5 * comp.delta_for(R * L)
+    outs, times = {}, {}
+    for name, fused in (("packed", False), ("fused", True)):
+        _build.reset_launch_counts()
+        gossip._round_leaf(theta, hat, s, xi, topo, gamma, comp, True, fused)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gossip._round_leaf(theta, hat, s, xi, topo, gamma, comp, True, fused)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        outs[name] = out
+        counts = {k: v // 2 for k, v in _build.launch_counts().items() if v}
+        log(f"[8] {name} round [{m},{R},{L}] bf16: {times[name]:.2f} ms (host clock), "
+            f"launches {counts}")
+    (tp, hp, sp), (tf, hf, sf) = outs["packed"], outs["fused"]
+    theta_eq = bool(torch.equal(tp, tf))
+    hat_eq = bool(torch.equal(hp, hf))
+    a, b = sp.float(), sf.float()
+    diff = (a - b).abs()
+    # one bf16 rounding step of the larger value: the f32 sums differ only in
+    # the last bits (w*(l*scale) vs l*(w*scale)), so their bf16 roundings
+    # are equal or adjacent
+    step = torch.maximum(a.abs(), b.abs()) * 2.0**-7
+    within = bool((diff <= step).all())
+    log(f"[8] theta_new equal: {theta_eq}; theta_hat equal: {hat_eq}; s_new: "
+        f"{int((diff > 0).sum())} of {diff.numel()} elements differ, max |diff| "
+        f"{float(diff.max()):.3e}, all within one bf16 step (2^-7 of the value): {within}")
+    if not (theta_eq and hat_eq and within):
+        raise AssertionError("packed and fused rounds disagree")
+    del outs, theta, hat, s, xi, tp, hp, sp, tf, hf, sf, a, b, diff, step
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 9
+TRAIN_ARGS = ["--arch", QWEN, "--nodes", "4", "--batch-per-node", "4", "--seq", "128",
+              "--compressor", "kq4b", "--steps", "3", "--log-every", "1"]
+# step-1/2 losses, packed against fused: the runs differ only in s's f32
+# reassociation (theta_hat is equal), which moves theta by gamma * one bf16
+# step of s at a few elements
+LOSS_REL_BOUND = 1e-3
+
+
+ROUND_SECTIONS = ("forward_backward", "optimizer", "dual", "consensus", "consensus_err")
+GOSSIP_KERNEL_NAMES = ("quantize_kernel", "dequantize_kernel", "fused_encode_kernel",
+                       "fused_mix_kernel")
+
+
+def _profile_breakdown(prof, wall_s: float) -> dict:
+    """Kernel time of one profiled round, by the trainer's sections (its
+    ``record_function`` ranges, whose device-side spans bracket the kernels
+    they launched) and, inside the consensus, gossip kernels vs other ops."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
+             if e.name in ROUND_SECTIONS}
+    kernels = [e for e in events if e.name not in ROUND_SECTIONS]
+    busy = {name: 0.0 for name in ROUND_SECTIONS + ("gossip kernels", "outside")}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3
+        section = next((k for k, (lo, hi) in spans.items() if lo <= e.time_range.start < hi),
+                       "outside")
+        busy[section] += ms
+        if section == "consensus" and any(g in e.name for g in GOSSIP_KERNEL_NAMES):
+            busy["gossip kernels"] += ms
+        agg = by_name.setdefault(e.name, [0.0, 0])
+        agg[0] += ms
+        agg[1] += 1
+    total = sum(v for k, v in busy.items() if k != "gossip kernels")
+    top = sorted(((v[0], v[1], k) for k, v in by_name.items()), reverse=True)[:8]
+    return {"wall_ms": wall_s * 1e3, "busy_ms": total, "busy": busy,
+            "spans_ms": {k: (hi - lo) / 1e3 for k, (lo, hi) in spans.items()}, "top": top}
+
+
+def train_full_width(dev) -> dict[str, int]:
+    """Phase 9: launch/train.py at full width, packed then fused; returns
+    the kernels' launch counts summed over both runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import _scan_plan, payload_bits
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelQuantization
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    cfg = get_config(QWEN)
+    m, K, steps = 4, 3, 3
+    template = [torch.empty((m,) + tuple(p.shape), device="meta")
+                for p in leaves(T.abstract_train_params(cfg))]
+    n_enc = 0
+    for leaf in template:
+        plan = _scan_plan(tuple(leaf.shape), leaf[0].numel(), 1 << 24)
+        n_enc += 1 if plan is None else plan[1]
+    want_bits = payload_bits(KernelQuantization(4), template, ring(m)) + 32.0 * m * 2
+    expect = {
+        "packed": {"quantize": m * n_enc, "dequantize": m * (1 + K) * n_enc},
+        "fused": {"fused_encode": n_enc, "fused_mix": n_enc * -(-K // 8)},
+    }
+    log(f"[9] chunk plan: {n_enc} encodes per round; expected launches per round {expect}")
+
+    total = {name: 0 for name in _build.COUNTERS}
+    runs = {}
+    for name, extra in (("packed", []), ("fused", ["--fused-gossip"])):
+        log(f"[9] launch/train.py {' '.join(TRAIN_ARGS + extra)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        prof_out = {}
+
+        def wrap_step(step, run):
+            if step != 1:
+                return run()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            return out
+
+        _build.reset_launch_counts()
+        metrics = train.main(TRAIN_ARGS + extra, wrap_step=wrap_step)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[9] {name}: launches {counts}; per round "
+            f"{ {k: v / steps for k, v in counts.items() if v} }; peak memory {peak:.2f} GiB")
+        for k, v in counts.items():
+            total[k] += v
+        for k, per_round in expect[name].items():
+            if counts[k] != per_round * steps:
+                raise AssertionError(f"phase 9 {name}: {k} launched {counts[k]} times, the chunk "
+                                     f"plan gives {per_round} x {steps}")
+        hist = metrics["history"]
+        finite = all(math.isfinite(x) for h in hist for x in h["losses"] + [h["consensus_err"]])
+        log(f"[9] {name}: s/step {[round(x, 3) for x in metrics['step_seconds']]} (round 1 "
+            f"under the profiler); "
+            f"bits/round {metrics['bits_per_round']:.6e} (payload_bits of the stacked "
+            f"template + dual: {want_bits:.6e}); gamma {metrics['gamma']:.6e}; "
+            f"lambda_max {[h['lambda_max'] for h in hist]}")
+        pb = _profile_breakdown(prof_out["prof"], prof_out["wall"])
+        log(f"[9] {name} round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, kernels "
+            f"busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%} of the wall)")
+        log(f"[9] {name} kernel ms by section {({k: round(v, 1) for k, v in pb['busy'].items()})}"
+            f"; device span ms by section {({k: round(v, 1) for k, v in pb['spans_ms'].items()})}")
+        for ms_, count, key in pb["top"]:
+            log(f"[9]   {ms_:9.2f} ms x{count:<6d} {key[:90]}")
+        if not finite or metrics["bits_per_round"] != want_bits:
+            raise AssertionError(f"phase 9 {name}: non-finite losses / consensus error, or "
+                                 f"bits/round != payload_bits")
+        runs[name] = hist
+    p, f = runs["packed"], runs["fused"]
+    if p[0]["losses"] != f[0]["losses"]:
+        raise AssertionError(f"step-0 losses differ: {p[0]['losses']} vs {f[0]['losses']}")
+    rel = max(abs(a - b) / abs(b) for s_ in (1, 2) for a, b in zip(p[s_]["losses"],
+                                                                   f[s_]["losses"]))
+    log(f"[9] step-0 losses equal (packed == fused); steps 1-2 max relative difference "
+        f"{rel:.3e} (bound {LOSS_REL_BOUND})")
+    if rel > LOSS_REL_BOUND:
+        raise AssertionError("packed and fused trainers disagree")
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------- phase 10
+def quickstart(dev) -> None:
+    from repro_torch.launch.quickstart import run
+
+    t0 = time.perf_counter()
+    res = run(600, compressor="kq4b", device=dev)
+    log(f"[10] quickstart, 10 nodes, ring, kq4b fused, 600 rounds each: "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[10] {'':12s} {'majority':>9s} {'minority':>9s} {'worst':>9s}")
+    for name, acc in res.items():
+        log(f"[10] {name:12s} {acc['majority']:9.3f} {acc['minority']:9.3f} {acc['worst']:9.3f}")
+    if res["AD-GDA"]["worst"] < res["CHOCO-SGD"]["worst"]:
+        raise AssertionError("AD-GDA's worst accuracy fell below CHOCO-SGD's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -484,13 +882,22 @@ def main(argv=None) -> int:
     if 2 in phases:
         log("[2] kernels against their plain versions")
         records = check_kernels(dev)
+        records.update(check_gossip_kernels(dev))
     if 3 in phases:
         model_vs_plain(dev)
-    launches = {}  # from the main path's own run only; null when it did not run
+    launches = {}  # from the main paths' own runs only; null when they did not run
     if phases & {4, 5, 6}:
-        launches = main_path(dev)
+        serving = main_path(dev)
+        launches.update({k: serving[k] for k in SERVING_KERNELS})
     if 7 in phases:
         profile_decode(dev)
+    if 8 in phases:
+        round_full_width(dev)
+    if 9 in phases:
+        training = train_full_width(dev)
+        launches.update({k: training[k] for k in GOSSIP_KERNELS})
+    if 10 in phases:
+        quickstart(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

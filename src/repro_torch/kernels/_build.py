@@ -30,7 +30,15 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 #: kernel library name -> source file under csrc/
-SOURCES = {"flash_attn": "flash_attn.cu", "decode_attn": "decode_attn.cu"}
+SOURCES = {
+    "flash_attn": "flash_attn.cu",
+    "decode_attn": "decode_attn.cu",
+    "quantize": "quantize.cu",
+    "choco_fused": "choco_fused.cu",
+}
+#: flags of one library on top of NVCC_FLAGS: the compression kernels must
+#: round exactly as their plain versions, so no FMA contraction there
+EXTRA_FLAGS = {"quantize": ["-fmad=false"], "choco_fused": ["-fmad=false"]}
 #: nvcc's stderr per built library (ptxas register / spill report)
 BUILD_LOG: dict[str, str] = {}
 
@@ -73,12 +81,16 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def lib_path(name: str) -> Path:
     digest = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -99,7 +111,7 @@ def build(names=None) -> dict[str, float]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), tmp, out, time.perf_counter())
     failed = []

@@ -1,8 +1,16 @@
-"""Plain PyTorch oracles for the attention kernels (attention half of
-``repro.kernels.ref``).
+"""Plain PyTorch oracles for the port's kernels (``repro.kernels.ref``
+without block top-k).
 
-They compute exactly what the kernels compute, with materialized scores and
-the same finite ``-1e30`` mask sentinel, in float32.
+Attention: exactly what the kernels compute, with materialized scores and the
+same finite ``-1e30`` mask sentinel, in float32.
+
+Compression: stochastic b-bit quantization with 2^b levels {0..2^b-1} and
+bit-packing (``8/bits`` level rows per uint8 row, 8 sign rows per uint8
+row), and the two fused CHOCO-round passes.  Every operation is one IEEE
+rounding in the order the reference takes, so the kernels, built without
+FMA contraction, equal these bit for bit.  Scalars that enter a division
+are device tensors: PyTorch on the card divides by a host scalar as a
+multiply by its reciprocal, which rounds differently.
 """
 from __future__ import annotations
 
@@ -70,3 +78,105 @@ def decode_attention_ref(q, k, v, valid, *, scale=None, k_scale=None, v_scale=No
     if v_scale is not None:
         p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
     return torch.einsum("bngl,blnd->bngd", p, vf).to(q.dtype)
+
+
+# ----------------------------------------------------------------- quantize
+LANES = 128
+
+
+def _rows_for(d: int, pack: int) -> int:
+    """Pad flat length d up to a multiple of pack*8*LANES and return rows."""
+    unit = pack * 8 * LANES  # pack rows x sign rows x lanes alignment
+    padded = ((d + unit - 1) // unit) * unit
+    return padded // LANES
+
+
+def tau_for(d: int, bits: int) -> float:
+    """Paper eq. (2) normalizer: tau = 1 + min(d/2^2b, sqrt(d)/2^b)."""
+    lvl = float(1 << bits)
+    return 1.0 + min(d / lvl**2, (d**0.5) / lvl)
+
+
+def f32_full(like: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` rounded to f32, shaped and placed like ``like``."""
+    return torch.full(like.shape, value, dtype=torch.float32, device=like.device)
+
+
+def encode_scale(norm: torch.Tensor, bits: int) -> torch.Tensor:
+    """2^b / max(norm, 1e-30) in f32, an IEEE quotient."""
+    return f32_full(norm, float(1 << bits)) / torch.clamp(norm.float(), min=1e-30)
+
+
+def _pack(vals: torch.Tensor, per_byte: int, width: int) -> torch.Tensor:
+    """[..., rows, 128] small ints -> [..., rows/per_byte, 128] uint8: row
+    ``r*per_byte + j`` lands in bits ``j*width`` of packed row ``r``."""
+    *lead, rows, lanes = vals.shape
+    v = vals.to(torch.int32).reshape(*lead, rows // per_byte, per_byte, lanes)
+    sh = torch.arange(per_byte, dtype=torch.int32, device=vals.device) * width
+    return (v << sh[:, None]).sum(-2).to(torch.uint8)
+
+
+def _unpack(packed: torch.Tensor, per_byte: int, width: int) -> torch.Tensor:
+    """Inverse of :func:`_pack` -> [..., rows, 128] int32."""
+    *lead, prows, lanes = packed.shape
+    sh = torch.arange(per_byte, dtype=torch.int32, device=packed.device) * width
+    v = (packed.to(torch.int32)[..., None, :] >> sh[:, None]) & ((1 << width) - 1)
+    return v.reshape(*lead, prows * per_byte, lanes)
+
+
+def quantize_ref(x: torch.Tensor, xi: torch.Tensor, norm, bits: int):
+    """Quantize a [rows, 128] f32 array (pre-padded; noise xi in [0, 1)).
+
+    Returns (packed_levels [rows/pack, 128] uint8, packed_signs [rows/8, 128]
+    uint8).
+    """
+    assert x.ndim == 2 and x.shape[1] == LANES
+    norm = torch.as_tensor(norm, dtype=torch.float32, device=x.device)
+    q = torch.floor(x.abs() * encode_scale(norm, bits) + xi)
+    lvl = torch.clamp(q, 0, (1 << bits) - 1)
+    return _pack(lvl, 8 // bits, bits), _pack(x < 0, 8, 1)
+
+
+def dequantize_ref(packed_lvl: torch.Tensor, packed_sign: torch.Tensor, scale, bits: int):
+    """Inverse of quantize_ref -> [rows, 128] f32; ``scale`` = norm / (2^b tau)."""
+    lvl = _unpack(packed_lvl, 8 // bits, bits).float()
+    sign = _unpack(packed_sign, 8, 1)
+    mag = lvl * torch.as_tensor(scale, dtype=torch.float32, device=lvl.device)
+    return torch.where(sign == 1, -mag, mag)
+
+
+# ---------------------------------------------------- fused CHOCO round oracles
+def fused_encode_ref(theta_new, hat, xi, scales, bits: int):
+    """theta_new/hat: [m, rows, 128] (leaf dtype), xi: [m, rows, 128] f32,
+    scales: [m, 2] f32 (encode scale 2^b/||resid||, dequant scale
+    ||resid||/(2^b tau)).  Returns (packed_lvl [m, rows/pack, 128] u8,
+    packed_sign [m, rows/8, 128] u8, hat_new [m, rows, 128] in hat.dtype).
+    """
+    resid = (theta_new - hat).float()
+    q = torch.floor(resid.abs() * scales[:, 0, None, None] + xi)
+    lvlf = torch.clamp(q, 0, (1 << bits) - 1)
+    neg = resid < 0
+    mag = lvlf * scales[:, 1, None, None]
+    hat_new = (hat.float() + torch.where(neg, -mag, mag)).to(hat.dtype)
+    return _pack(lvlf, 8 // bits, bits), _pack(neg, 8, 1), hat_new
+
+
+def fused_mix_ref(rolled_lvl, rolled_sign, s, wscale, bits: int):
+    """rolled_lvl: [K, m, rows/pack, 128] u8, rolled_sign: [K, m, rows/8, 128]
+    u8, s: [m, rows, 128], wscale: [K, m] f32.  Returns s_new [m, rows, 128]:
+    s + sum_k deq(payload_k) * wscale[k], accumulated in f32 in shift order.
+    """
+    acc = torch.zeros(s.shape, dtype=torch.float32, device=s.device)
+    for k in range(rolled_lvl.shape[0]):
+        mag = _unpack(rolled_lvl[k], 8 // bits, bits).float() * wscale[k, :, None, None]
+        acc = acc + torch.where(_unpack(rolled_sign[k], 8, 1) == 1, -mag, mag)
+    return (s.float() + acc).to(s.dtype)
+
+
+def digest_ref(x: torch.Tensor) -> torch.Tensor:
+    """Per-node int32 wraparound sum of the raw bits ([m, ...] -> [m] int32),
+    as ``repro.core.faults.digest``: bitcast to the same-width integer,
+    widen to int32, sum."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
+    total = x.reshape(x.shape[0], -1).view(ints).to(torch.int64).sum(1)
+    return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)

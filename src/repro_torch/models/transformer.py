@@ -19,11 +19,34 @@ and ``decode_step(params, tokens, cache, pos, cfg) -> (logits, cache)``,
 where ``pos`` is an int or a ``[B]`` long tensor (one position per row, as
 the reference engine's per-slot vmap gives).  MoE, mamba2, rglru,
 encoder-decoder and VLM families raise ``NotImplementedError``.
+
+Training keeps the reference's own tree, which the decentralized trainer
+stacks per node and gossips leaf by leaf (the chunk plan and the bit counts
+follow its leaves):
+
+    tree = {
+      "embed": {"table": [V, d]},
+      "prefix": [layer, ...],                 # first_dense_layers, if any
+      "blocks": [stacked_pos_0, ...],         # leaves [n_blocks, ...]
+      "suffix": [layer, ...],                 # num_layers % p remainder
+      "final_norm": {"scale": [d]},
+    }
+
+``init_train_params`` builds it, ``forward`` / ``lm_loss`` run it (layer
+``b`` of a block reads the views ``leaf[b]``; each block is rematerialised
+with ``torch.utils.checkpoint`` as the reference wraps it in
+``jax.checkpoint``), and ``params_from_jax`` unstacks it for serving.
+Training attention is the plain ``_attend`` with autograd: a training call
+with ``attn_kernel`` set raises until the attention kernels have backward
+kernels.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -44,7 +67,11 @@ from repro_torch.models.layers import (
 )
 
 __all__ = [
+    "abstract_train_params",
+    "forward",
     "init_model",
+    "init_train_params",
+    "lm_loss",
     "init_cache",
     "prefill",
     "decode_step",
@@ -207,9 +234,12 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
 
 # -------------------------------------------------------- reference params
 def _to_tensor(arr, device) -> torch.Tensor:
-    """numpy leaf -> tensor; bf16 leaves (ml_dtypes ``bfloat16``, or the
-    2-byte void type ``np.load`` gives without ml_dtypes) are reinterpreted
-    through int16, so ml_dtypes is not needed."""
+    """numpy (or tensor) leaf -> tensor on ``device``; bf16 numpy leaves
+    (ml_dtypes ``bfloat16``, or the 2-byte void type ``np.load`` gives
+    without ml_dtypes) are reinterpreted through int16, so ml_dtypes is not
+    needed."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     arr = np.array(arr)  # a writable, contiguous copy
     if arr.dtype.itemsize == 2 and (arr.dtype.kind == "V" or arr.dtype.name == "bfloat16"):
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -227,7 +257,8 @@ def _map_tree(tree, fn):
 
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
-    """The reference's parameter tree (leaves as numpy arrays) -> the port's.
+    """The reference's parameter tree (leaves as numpy arrays, or the
+    training tree's tensors) -> the port's serving layout.
 
     Stacked ``blocks[pos]`` leaves [n_blocks, ...] unstack into global layer
     ``pre + b * p_len + pos``; ``prefix`` and ``suffix`` layers keep their
@@ -255,3 +286,155 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
         "layers": layers,
         "final_norm": _map_tree(tree["final_norm"], lambda a: _to_tensor(a, dev)),
     }
+
+
+# ------------------------------------------------------------- training
+def _layer_specs(cfg: ModelConfig) -> dict:
+    """One layer's parameters as (shape, fan_in | "ones" | "zeros")."""
+    d, H, KV, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
+
+    def norm():
+        p = {"scale": ((d,), "ones")}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = ((d,), "zeros")
+        return p
+
+    mixer = {"wq": ((d, H, hd), d), "wk": ((d, KV, hd), d), "wv": ((d, KV, hd), d),
+             "wo": ((H, hd, d), H * hd)}
+    if cfg.use_bias:
+        mixer.update(bq=((H, hd), "zeros"), bk=((KV, hd), "zeros"), bv=((KV, hd), "zeros"),
+                     bo=((d,), "zeros"))
+    if cfg.qk_norm:
+        mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
+    layer = {"norm1": norm(), "mixer": mixer}
+    if f > 0:
+        if cfg.mlp_type == "swiglu":
+            ffn = {"w_gate": ((d, f), d), "w_up": ((d, f), d), "w_down": ((f, d), f)}
+        else:
+            ffn = {"w1": ((d, f), d), "w2": ((f, d), f)}
+            if cfg.use_bias:
+                ffn.update(b1=((f,), "zeros"), b2=((d,), "zeros"))
+        layer.update(norm2=norm(), ffn=ffn)
+    return layer
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+
+
+def _map_specs(tree, fn):
+    if _is_spec(tree):
+        return fn(*tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(v, fn) for k, v in tree.items()}
+    return [_map_specs(v, fn) for v in tree]
+
+
+def _train_specs(cfg: ModelConfig) -> dict:
+    _check_supported(cfg)
+    pre, nb, suf = _pattern_split(cfg)
+    layer = _layer_specs(cfg)
+    specs = {"embed": {"table": ((cfg.vocab_size, cfg.d_model), cfg.d_model)}}
+    if pre:
+        specs["prefix"] = [layer] * pre
+    if nb:
+        stacked = _map_specs(layer, lambda shape, init: ((nb,) + shape, init))
+        specs["blocks"] = [stacked] * len(cfg.layer_pattern)
+    if suf:
+        specs["suffix"] = [layer] * suf
+    specs["final_norm"] = {"scale": ((cfg.d_model,), "ones")}
+    return specs
+
+
+def init_train_params(cfg: ModelConfig, *, seed: int = 0,
+                      generator: torch.Generator | None = None, device="cuda"):
+    """Random weights in the reference's training tree (normal / sqrt(fan_in),
+    ones for norm scales, zeros for biases) from a seeded ``torch.Generator``
+    on ``device``."""
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.activation_dtype
+
+    def make(shape, init):
+        if init == "ones":
+            return torch.ones(shape, dtype=dt, device=dev)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * (1.0 / math.sqrt(init))).to(dt)
+
+    return _map_specs(_train_specs(cfg), make)
+
+
+def abstract_train_params(cfg: ModelConfig):
+    """The training tree as shapes only (meta tensors, nothing allocated)."""
+    dt = cfg.activation_dtype
+    return _map_specs(_train_specs(cfg),
+                      lambda shape, init: torch.empty(shape, dtype=dt, device="meta"))
+
+
+def _train_layer(p, x, cfg: ModelConfig, kind: str):
+    window = cfg.sliding_window if kind == "local_attn" else None
+    x = x + apply_attention(p["mixer"], apply_norm(p["norm1"], x), cfg, causal=True,
+                            window=window)
+    if "ffn" in p:
+        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
+    return x
+
+
+def _train_block(x, layers, cfg: ModelConfig, kinds):
+    for p, kind in zip(layers, kinds):
+        x = _train_layer(p, x, cfg, kind)
+    return x
+
+
+def _layer_at(unbound, b: int):
+    """Layer ``b`` of a block whose leaves were unbound into per-layer tuples."""
+    if isinstance(unbound, dict):
+        return {k: _layer_at(v, b) for k, v in unbound.items()}
+    return unbound[b]
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Training/eval forward over the training tree.  batch: {"tokens":
+    [B, S]}.  Returns (logits [B, S, V], aux_loss), aux 0 for dense models."""
+    if cfg.attn_kernel is not None:
+        raise NotImplementedError(
+            f"training with attn_kernel={cfg.attn_kernel!r}: backward kernels not yet ported "
+            f"to repro_torch; see ROADMAP.md"
+        )
+    _check_supported(cfg)
+    pre, nb, suf = _pattern_split(cfg)
+    p_len = len(cfg.layer_pattern)
+    x = embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
+    for i, p in enumerate(params.get("prefix", [])):
+        x = _train_layer(p, x, cfg, cfg.mixer_for_layer(i))
+    if nb > 0:
+        kinds = [cfg.mixer_for_layer(pre + pos) for pos in range(p_len)]
+        # unbind once: its backward stacks the layers' gradients in one pass,
+        # where indexing leaf[b] per block would add a full-size zero-padded
+        # gradient per layer (quadratic in depth)
+        unbound = [_map_tree(stacked, lambda a: a.unbind(0)) for stacked in params["blocks"]]
+        for b in range(nb):
+            layers = [_layer_at(u, b) for u in unbound]
+            # remat: backward recomputes the block's activations
+            x = checkpoint(_train_block, x, layers, cfg, kinds, use_reentrant=False)
+    for s, p in enumerate(params.get("suffix", [])):
+        x = _train_layer(p, x, cfg, cfg.mixer_for_layer(pre + nb * p_len + s))
+    x = apply_norm(params["final_norm"], x)
+    return unembed(params["embed"], x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, rng=None):
+    """Next-token cross entropy (f32), masking pad positions (``loss_mask``)."""
+    logits, aux = forward(params, batch, cfg)
+    targets = batch["tokens"][:, 1:].long()
+    logits = logits[:, :-1].float()
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"][:, 1:]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + cfg.router_aux_weight * aux

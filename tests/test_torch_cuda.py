@@ -1,5 +1,7 @@
-"""repro_torch on the card: each CUDA kernel against its plain version, and
-the reduced model and engine with the kernels against the plain path.
+"""repro_torch on the card: each CUDA kernel against its plain version, the
+reduced model and engine with the kernels against the plain path, and the
+gossip kernels (quantize, dequantize, fused encode, fused mix) against
+their plain versions bit for bit, alone and inside a trainer round.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX (the card's machine has none); run it there with
@@ -19,11 +21,17 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import gossip
+from repro_torch.core.topology import ring
 from repro_torch.kernels import _build
+from repro_torch.kernels import choco_fused as kc
+from repro_torch.kernels import quantize as kq
+from repro_torch.kernels.ops import KernelQuantization
 from repro_torch.kernels import decode as kd
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import sliding_window as ksw
-from repro_torch.kernels.ref import quantize_kv_ref
+from repro_torch.kernels.ref import encode_scale, f32_full, quantize_kv_ref, tau_for
+from repro_torch.launch import train
 from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServeEngine
 
@@ -177,3 +185,77 @@ def test_engine_kernels_match_plain_engine(cuda, quantized_kv):
         assert all(r.done for r in reqs) and eng.prefix_hits == 1
         runs[knob] = [(r.output, r.admit_tick, r.finish_tick) for r in reqs]
     assert runs["flash"] == runs[None]
+
+
+# ------------------------------------------------------------ gossip kernels
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_quantize_kernels_match_plain_bit_for_bit(cuda, bits):
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    x = torch.randn(1024, 128, generator=g, device=cuda)
+    xi = torch.rand(1024, 128, generator=g, device=cuda)
+    norm = torch.linalg.vector_norm(x).reshape(1)
+    before = (kq.quantize_launches.count, kq.dequantize_launches.count)
+    lvl, sign = kq.quantize(x, xi, norm, bits)
+    plvl, psign = kq.quantize_plain(x, xi, norm, bits)
+    assert torch.equal(lvl, plvl) and torch.equal(sign, psign)
+    scale = norm / f32_full(norm, (1 << bits) * tau_for(x.numel(), bits))
+    assert torch.equal(kq.dequantize(lvl, sign, scale, bits),
+                       kq.dequantize_plain(lvl, sign, scale, bits))
+    assert (kq.quantize_launches.count, kq.dequantize_launches.count) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype,digest", [(torch.float32, False), (torch.bfloat16, True)])
+def test_fused_encode_kernel_matches_plain_bit_for_bit(cuda, dtype, digest):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    m, R = 4, 512
+    tn, hat = (torch.randn(m, R, 128, generator=g, device=cuda).to(dtype) for _ in range(2))
+    xi = torch.rand(m, R, 128, generator=g, device=cuda)
+    norms = torch.linalg.vector_norm((tn - hat).float().reshape(m, -1), dim=1)
+    scales = torch.stack([encode_scale(norms, 4),
+                          norms / f32_full(norms, 16 * tau_for(R * 128, 4))], 1)
+    out = kc.fused_encode(tn, hat, xi, scales, 4, with_digest=digest)
+    for a, b in zip(out, kc.fused_encode_plain(tn, hat, xi, scales, 4, with_digest=digest)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_fused_mix_kernel_matches_plain_bit_for_bit(cuda, K):
+    g = torch.Generator(device=cuda).manual_seed(K)
+    m, R = 4, 512
+    randint = lambda *s: torch.randint(0, 256, s, generator=g, device=cuda).to(torch.uint8)
+    lvl, sign = randint(m, R // 2, 128), randint(m, R // 8, 128)
+    s = torch.randn(m, R, 128, generator=g, device=cuda)
+    ws = torch.rand(K, m, generator=g, device=cuda)
+    shifts = [k - K // 2 for k in range(K)]
+    rl = torch.stack([torch.roll(lvl, k, 0) for k in shifts])
+    rs = torch.stack([torch.roll(sign, k, 0) for k in shifts])
+    want = kc.fused_mix_plain(rl, rs, s, ws, 4)
+    assert torch.equal(kc.fused_mix(rl, rs, s, ws, 4), want)
+    assert torch.equal(kc.fused_mix_shifted(lvl, sign, s.clone(), ws, shifts, 4), want)
+
+
+def test_packed_and_fused_rounds_agree_on_the_card(cuda):
+    """One bf16 round: theta and theta_hat equal, s within one bf16 step."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    m = 4
+    theta, hat, s = (torch.randn(m, 3, 5000, generator=g, device=cuda).to(torch.bfloat16)
+                     for _ in range(3))
+    comp = KernelQuantization(4)
+    xi = torch.rand(comp.noise_shape(m, (3, 5000)), generator=g, device=cuda)
+    packed = gossip._round_leaf(theta, hat, s, xi, ring(m), 0.1, comp, True, False)
+    fused = gossip._round_leaf(theta, hat, s, xi, ring(m), 0.1, comp, True, True)
+    assert torch.equal(packed[0], fused[0]) and torch.equal(packed[1], fused[1])
+    a, b = packed[2].float(), fused[2].float()
+    assert bool(((a - b).abs() <= torch.maximum(a.abs(), b.abs()) * 2.0**-7).all())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_reduced_trainer_runs_through_the_gossip_kernels(cuda, fused):
+    _build.reset_launch_counts()
+    res = train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "2", "--compressor",
+                      "kq4b", *(["--fused-gossip"] if fused else [])])
+    assert all(np.isfinite(res["losses"]))
+    counts = _build.launch_counts()
+    names = ("fused_encode", "fused_mix") if fused else ("quantize", "dequantize")
+    assert all(counts[n] > 0 for n in names)

@@ -20,7 +20,11 @@ from repro.configs import get_config as jax_config
 from repro.models import transformer as JT
 from repro_torch.checkpoint import restore, restore_jax_params, save
 from repro_torch.configs import get_config as torch_config
+from repro_torch.core import ADGDAConfig, adgda_trainer
+from repro_torch.launch import quickstart as tquick
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as TT
 from repro_torch.serving import ServeEngine
 
@@ -40,6 +44,11 @@ def _env():
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the training slice's modules are among those checked here and below
+    assert {"repro_torch.core.gossip", "repro_torch.core.trainer", "repro_torch.core.adgda",
+            "repro_torch.kernels.quantize", "repro_torch.kernels.choco_fused",
+            "repro_torch.optim.sgd", "repro_torch.data.synthetic", "repro_torch.launch.train",
+            "repro_torch.launch.quickstart"} <= set(MODULES)
     offenders = {str(f.relative_to(ROOT)): m for f in files
                  if (m := IMPORT_RE.findall(f.read_text()))}
     assert offenders == {}
@@ -120,6 +129,11 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: tserve.main(["--arch", "qwen3-1.7b", "--reduced", "--gen", "2"]),
         lambda: TT.params_from_jax({"embed": {"table": np.zeros((512, 64))}}, cfg),
         lambda: restore(fname, params),
+        lambda: TT.init_train_params(cfg),
+        lambda: tsteps.make_trainer(cfg, 4),
+        lambda: adgda_trainer(ADGDAConfig(num_nodes=4), lambda p, b, r: 0.0),
+        lambda: ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"]),
+        lambda: tquick.run(1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
