@@ -9,24 +9,29 @@ Phases (any failure exits non-zero):
   1. card, versions, and an nvcc build of every kernel from ``csrc/``;
   2. each kernel against its plain PyTorch version at the main paths'
      shapes: max error, tolerance, kernel / plain / library ms, and bound
-     (attention at the serving shapes; quantize, dequantize, fused encode
-     and fused mix at qwen3-1.7b's largest gossip chunk, integer outputs
-     exactly equal);
+     (attention, block-sparse attention included, at the serving shapes;
+     quantize, dequantize, fused encode, fused mix and block top-k at
+     qwen3-1.7b's largest gossip chunk, outputs exactly equal);
   3. full-width qwen3-1.7b (random seeded weights): prefill + 16 decode steps
-     with ``attn_kernel="flash"`` against ``attn_kernel=None``;
-  4. ``ServeEngine`` at full width, bf16 and int8 KV caches;
-  5. one long-context request through the sliding-window prefill and the
-     ring-buffer decode;
-  6. the port's ``launch/serve.py`` batch mode;
+     with ``attn_kernel="flash"`` and ``"block_sparse"`` against
+     ``attn_kernel=None``;
+  4. ``ServeEngine`` at full width: flash prefill with bf16 and int8 KV
+     caches, block-sparse prefill with bf16 KV;
+  5. one long-context request through the sliding-window prefill, then
+     through the windowed block-sparse prefill (its logits against the
+     plain path's), and the ring-buffer decode;
+  6. the port's ``launch/serve.py`` batch mode, flash then block-sparse;
   7. torch.profiler over eight decode ticks: device time by kernel;
   8. one CHOCO round on the largest chunk at full width, packed path
      (quantize / dequantize kernels) against fused path (fused kernels);
   9. the port's ``launch/train.py``: 3 AD-GDA rounds of full-width
      qwen3-1.7b on 4 nodes with ``kq4b`` ring gossip, packed then fused,
+     then with ``KernelBlockTopK(0.25, 1024)`` (block top-k on its kernel),
      with one round under torch.profiler each;
  10. the quickstart experiment (10 nodes, AD-GDA against CHOCO-SGD, 600
-     rounds, ``kq4b`` fused gossip): AD-GDA's worst accuracy must not fall
-     below CHOCO-SGD's.
+     rounds) with ``kq4b`` fused gossip and with ``top10``: AD-GDA's worst
+     accuracy must not fall below CHOCO-SGD's, and under ``top10`` (which
+     draws no noise) both must equal the reference's within 0.01.
 Phases 4-6 and 9 are the main paths: launch counters are zeroed just before
 each run and read just after, and every kernel the run goes through must
 have launched.  The line before the last is the kernels' JSON summary; the
@@ -58,8 +63,8 @@ TOL = {"bfloat16": dict(atol=1e-4, rtol=1e-2), "float32": dict(atol=2e-5, rtol=1
 L2_BYTES = 50 * 2**20
 # kernels by main path: the serving phases (4-6) and the trainer (9)
 SERVING_KERNELS = ("flash_attention", "sliding_window_attention", "decode_attention",
-                   "decode_attention_int8")
-GOSSIP_KERNELS = ("quantize", "dequantize", "fused_encode", "fused_mix")
+                   "decode_attention_int8", "block_sparse_attention")
+GOSSIP_KERNELS = ("quantize", "dequantize", "fused_encode", "fused_mix", "block_topk")
 
 
 def log(msg: str) -> None:
@@ -97,6 +102,25 @@ def copies_past_l2(make, nbytes: int):
     return [make() for _ in range(n)]
 
 
+def within_tol(label, out, ref, dtype: str, failures: list) -> float:
+    """Log and check ``|out - ref| <= atol + rtol * |ref|`` per element
+    (TOL[dtype]); returns the max abs error, appends ``label`` on failure."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    tol = TOL[dtype]
+    ok = bool(torch.isfinite(out).all()) and bool(
+        (err <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+    mx = float(err.max())
+    log(f"  {label}: max_abs_err={mx:.3e} rel_l2={float((out - ref).norm() / ref.norm()):.3e} "
+        f"mean|ref|={float(ref.abs().mean()):.3e} "
+        f"tol(atol={tol['atol']}, rtol={tol['rtol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(label)
+    return mx
+
+
 def bound(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -122,18 +146,7 @@ def check_kernels(dev) -> dict:
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     def compare(label, out, ref, dtype):
-        out, ref = out.float(), ref.float()
-        err = (out - ref).abs()
-        tol = TOL[dtype]
-        ok = bool(torch.isfinite(out).all()) and bool(
-            (err <= tol["atol"] + tol["rtol"] * ref.abs()).all())
-        mx = float(err.max())
-        log(f"  {label}: max_abs_err={mx:.3e} rel_l2={float((out - ref).norm() / ref.norm()):.3e} "
-            f"mean|ref|={float(ref.abs().mean()):.3e} "
-            f"tol(atol={tol['atol']}, rtol={tol['rtol']}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(label)
-        return mx
+        return within_tol(label, out, ref, dtype, failures)
 
     def pairs(S, window):
         return sum(min(i + 1, window or S) for i in range(S))
@@ -264,6 +277,76 @@ def check_kernels(dev) -> dict:
     return records
 
 
+def check_block_sparse(dev) -> dict:
+    """Block-sparse attention against its plain version: the engine's
+    prefill (B4 S512, causal, block 128), the long request's (B1 S8448,
+    window 8192, block 128), a strided pattern, and f32 at block 16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import block_sparse as kbs
+    from repro_torch.kernels.ref import block_sparse_mask
+
+    P = kbs.BlockSparsePattern
+    gen = torch.Generator(device=dev).manual_seed(13)
+    failures: list[str] = []
+    records: dict[str, dict] = {}
+    cases = [  # label, B, H, hd, dtype, pattern, timed as
+        ("causal B4 S512 H16 hd128 block 128 bf16", 4, 16, 128, "bfloat16",
+         P.causal_pattern(512, 512, 128, 128), "record"),
+        ("windowed 8192 B1 S8448 H16 hd128 block 128 bf16", 1, 16, 128, "bfloat16",
+         P.windowed(8448, 8448, 8192, 128, 128), "log"),
+        ("strided local 2 stride 3 B4 S512 H16 hd128 block 64 bf16", 4, 16, 128, "bfloat16",
+         P.strided(512, 512, local_blocks=2, stride=3, block_q=64, block_k=64), None),
+        ("windowed 40 B2 S256 H4 hd64 block 16 f32", 2, 4, 64, "float32",
+         P.windowed(256, 256, 40, 16, 16), None),
+    ]
+    for desc, B, H, hd, dt, pattern, timed in cases:
+        dtype = getattr(torch, dt)
+        S = pattern.seq_q
+
+        def make():
+            return tuple(torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+                         for _ in range(3))
+
+        q, k, v = make()
+        out = kbs.block_sparse_attention(q, k, v, pattern)
+        torch.cuda.synchronize()
+        label = f"block_sparse {desc} (density {pattern.density():.3f})"
+        err = within_tol(label, out, kbs.block_sparse_attention_plain(q, k, v, pattern), dt,
+                         failures)
+        if timed is None:
+            continue
+        mask = block_sparse_mask(pattern, dev)
+        pairs = int(mask.sum())  # the live (q, k) pairs this pattern needs
+        idx, _, _, width = pattern.compact()
+        nbytes = 4 * B * S * H * hd * dtype.itemsize + 4 * (2 * idx.size + idx.shape[0])
+        sets = copies_past_l2(make, nbytes) if timed == "record" else [(q, k, v)]
+        reps = 20 if timed == "record" else 3
+        ms = time_ms(lambda a, b_, c: kbs.block_sparse_attention(a, b_, c, pattern), sets, reps)
+        plain_ms = time_ms(lambda a, b_, c: kbs.block_sparse_attention_plain(a, b_, c, pattern),
+                           sets, max(2, reps // 4))
+        tsets = [tuple(t.transpose(1, 2).contiguous() for t in s_) for s_ in sets]
+        lib_ms = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=mask),
+                         tsets, reps)
+        b_ms, b_by = bound(4 * B * H * hd * pairs, nbytes, dt)
+        rec = dict(name="block_sparse_attention", route="cuda",
+                   source="src/repro_torch/csrc/block_sparse_attn.cu",
+                   replaces="src/repro/kernels/block_sparse.py:214", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   shape=desc)
+        log(f"  time block_sparse_attention [{rec['shape']}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (SDPA with the pattern's mask) {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {pairs} live pairs per head), {b_ms / ms:.1%} of the bound")
+        if timed == "record":
+            records["block_sparse_attention"] = rec
+        del sets, tsets, mask
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"block-sparse kernel disagrees with its plain version: {failures}")
+    return records
+
+
 # ------------------------------------------------------------ phases 3-6
 QWEN = "qwen3-1.7b"
 # phase 3 bounds (bf16 at full width, random weights, 28 layers): the
@@ -273,10 +356,26 @@ LOGIT_REL_BOUND = 0.05
 GREEDY_AGREE_BOUND = 0.75
 
 
+def logits_vs_plain(label, a, b) -> None:
+    """Kernel-path logits ``a`` against the plain path's ``b`` (float32,
+    positions along the first axes, vocab last): rel L2 and greedy agreement
+    within the model bounds, or raise."""
+    import torch
+
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{label}: non-finite logits on the kernel path")
+    rel = float((a - b).norm() / b.norm())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"{label}: logits rel L2 error kernel vs plain {rel:.3e} (bound {LOGIT_REL_BOUND}), "
+        f"greedy agreement {agree:.3f} (bound >= {GREEDY_AGREE_BOUND})")
+    if rel > LOGIT_REL_BOUND or agree < GREEDY_AGREE_BOUND:
+        raise AssertionError(f"{label}: kernel path disagrees with the plain path at full width")
+
+
 def model_vs_plain(dev) -> None:
-    """Full-width qwen3-1.7b: prefill + 16 decode steps with the kernels
-    against the plain attention path, teacher-forced on the kernel path's
-    greedy tokens."""
+    """Full-width qwen3-1.7b: prefill + 16 decode steps with the flash and
+    the block-sparse kernels against the plain attention path, teacher-forced
+    on the flash path's greedy tokens."""
     import torch
 
     from repro_torch.configs import get_config
@@ -290,11 +389,11 @@ def model_vs_plain(dev) -> None:
     B, S, steps, cache_len = 4, 200, 16, 256
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
     runs = {}
-    for knob in ("flash", None):
+    for knob in ("flash", "block_sparse", None):  # S = 200: block-sparse blocks of 8
         c = dataclasses.replace(cfg, attn_kernel=knob)
         logits, cache = T.prefill(params, {"tokens": tokens}, c, cache_len)
         outs = [logits[:, -1].float()]
-        feed = runs["flash"]["greedy"] if knob is None else None
+        feed = runs["flash"]["greedy"] if knob != "flash" else None
         greedy = [torch.argmax(outs[-1], -1)]
         for i in range(steps):
             tok = (feed[i] if feed is not None else greedy[-1])[:, None]
@@ -304,17 +403,10 @@ def model_vs_plain(dev) -> None:
         torch.cuda.synchronize()
         runs[knob] = {"logits": torch.stack(outs), "greedy": greedy}
         del cache
-    a, b = runs["flash"]["logits"], runs[None]["logits"]
-    if not bool(torch.isfinite(a).all()):
-        raise AssertionError("non-finite logits on the kernel path")
-    rel = float((a - b).norm() / b.norm())
-    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    log(f"[3] prefill {B}x{S} + {steps} decode steps: logits rel L2 error kernel vs plain "
-        f"{rel:.3e} (bound {LOGIT_REL_BOUND}), greedy agreement {agree:.3f} "
-        f"(bound >= {GREEDY_AGREE_BOUND})")
-    if rel > LOGIT_REL_BOUND or agree < GREEDY_AGREE_BOUND:
-        raise AssertionError("kernel path disagrees with the plain path at full width")
-    del params, runs, a, b
+    for knob in ("flash", "block_sparse"):
+        logits_vs_plain(f"[3] {knob}: prefill {B}x{S} + {steps} decode steps",
+                        runs[knob]["logits"], runs[None]["logits"])
+    del params, runs
     torch.cuda.empty_cache()
 
 
@@ -347,6 +439,38 @@ def run_engine(label, cfg, params, dev, prompts, new_tokens, **engine_kw):
     return reqs, secs, ticks
 
 
+def long_logits_vs_plain(cfg, params, prompt, dev, cache_len: int, steps: int = 16) -> None:
+    """A long prompt through the model: windowed block-sparse prefill +
+    ``steps`` decode steps against the plain path (teacher-forced on the
+    block-sparse path's greedy tokens), over every prompt position.  The
+    plain path chunks queries by 1024 beyond 4096 tokens (as the
+    reference's), so the prompt length is a multiple of 1024."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    tokens = torch.tensor([prompt], device=dev)
+    runs = {}
+    for knob in ("block_sparse", None):
+        c = dataclasses.replace(cfg, attn_kernel=knob)
+        logits, cache = T.prefill(params, {"tokens": tokens}, c, cache_len)
+        outs = [logits[0]]
+        feed = runs["block_sparse"][1] if knob is None else None
+        greedy = [torch.argmax(logits[:, -1:], -1)]
+        for i in range(steps):
+            tok = feed[i] if feed is not None else greedy[-1]
+            logits, cache = T.decode_step(params, tok, cache, len(prompt) + i, c)
+            outs.append(logits[0])
+            greedy.append(torch.argmax(logits, -1))
+        runs[knob] = (torch.cat(outs).float(), greedy)
+        del cache, logits
+    logits_vs_plain(f"[5] block_sparse: {len(prompt)}-token prefill (window "
+                    f"{cfg.long_context_window}) + {steps} decode steps",
+                    runs["block_sparse"][0], runs[None][0])
+    del runs
+    torch.cuda.empty_cache()
+
+
 def main_path(dev) -> dict[str, int]:
     """Phases 4-6: the port's serving entry points at full width.  Returns
     the kernels' launch counts summed over the three phases."""
@@ -370,9 +494,26 @@ def main_path(dev) -> dict[str, int]:
             raise AssertionError(f"phase {phase}: kernels never launched: {missing}")
         for k, v in counts.items():
             total[k] += v
-        return out
+        return out, counts
+
+    def first_tokens_agree(name, reqs, plain):
+        firsts = sum(a.output[0] == b.output[0] for a, b in zip(reqs, plain))
+        same = sum(a.output == b.output for a, b in zip(reqs, plain))
+        log(f"[4] {name}: first tokens equal to the plain engine's: {firsts}/8; whole outputs: "
+            f"{same}/8 (bound: first tokens >= 6/8)")
+        if firsts < 6:
+            raise AssertionError(f"{name} engine disagrees with the plain engine")
+
+    def every_prefill(phase, sparse, prefills):
+        """The block-sparse run launched its kernel once per layer and prefill."""
+        want = cfg.num_layers * prefills
+        log(f"[{phase}] block_sparse_attention launches {sparse} = {cfg.num_layers} layers x "
+            f"{prefills} prefills: {sparse == want}")
+        if sparse != want:
+            raise AssertionError(f"phase {phase}: block-sparse launches {sparse} != {want}")
 
     cfg = dataclasses.replace(get_config(QWEN), attn_kernel="flash")
+    bcfg = dataclasses.replace(cfg, attn_kernel="block_sparse")
     params = T.init_model(cfg, seed=0, device=dev)
     rng = random.Random(0)
     lens = [17, 600, 130, 333, 17, 480, 64, 251]
@@ -382,21 +523,23 @@ def main_path(dev) -> dict[str, int]:
     engine_kw = dict(max_slots=4, cache_len=1024, prompt_bucket=32)
 
     log("[4] ServeEngine at full width: 8 requests, prompts 17-600 tokens, 16 new tokens each")
-    plain, _, _ = run_engine("plain attention (reference)", dataclasses.replace(cfg, attn_kernel=None),
-                             params, dev, prompts, 16, **engine_kw)
-    kern, _, _ = counted(4, ("flash_attention", "decode_attention"), lambda: run_engine(
+    plain, _, _ = run_engine("plain attention (reference)",
+                             dataclasses.replace(cfg, attn_kernel=None), params, dev, prompts, 16,
+                             **engine_kw)
+    (kern, _, _), fc = counted(4, ("flash_attention", "decode_attention"), lambda: run_engine(
         "kernels, bf16 KV", cfg, params, dev, prompts, 16, **engine_kw))
-    firsts = sum(a.output[0] == b.output[0] for a, b in zip(kern, plain))
-    same = sum(a.output == b.output for a, b in zip(kern, plain))
-    log(f"[4] first tokens equal to the plain engine's: {firsts}/8; whole outputs: {same}/8 "
-        f"(bound: first tokens >= 6/8)")
-    if firsts < 6:
-        raise AssertionError("kernel engine disagrees with the plain engine")
+    first_tokens_agree("flash", kern, plain)
     qcfg = dataclasses.replace(cfg, quantized_kv=True)
-    qreqs, _, _ = counted(4, ("flash_attention", "decode_attention_int8"), lambda: run_engine(
+    (qreqs, _, _), _ = counted(4, ("flash_attention", "decode_attention_int8"), lambda: run_engine(
         "kernels, int8 KV", qcfg, params, dev, prompts, 16, **engine_kw))
     log(f"[4] int8-KV first tokens equal to bf16-KV's: "
         f"{sum(a.output[0] == b.output[0] for a, b in zip(qreqs, kern))}/8")
+    (sreqs, _, _), sc = counted(4, ("block_sparse_attention", "decode_attention"),
+                                lambda: run_engine("block-sparse prefill, bf16 KV", bcfg, params,
+                                                   dev, prompts, 16, **engine_kw))
+    first_tokens_agree("block_sparse", sreqs, plain)
+    # the flash run launched flash once per layer and prefill: same prefills here
+    every_prefill(4, sc["block_sparse_attention"], fc["flash_attention"] // cfg.num_layers)
     torch.cuda.empty_cache()
 
     log("[5] one long-context request: 8448-token prompt, cache_len 8480 (ring of 8192)")
@@ -404,14 +547,25 @@ def main_path(dev) -> dict[str, int]:
     counted(5, ("sliding_window_attention", "decode_attention"), lambda: run_engine(
         "long context", cfg, params, dev, [long_prompt], 16, max_slots=1, cache_len=8480,
         prompt_bucket=32))
+    _, lc = counted(5, ("block_sparse_attention", "decode_attention"), lambda: run_engine(
+        "long context, block-sparse prefill", bcfg, params, dev, [long_prompt], 16, max_slots=1,
+        cache_len=8480, prompt_bucket=32))
+    every_prefill(5, lc["block_sparse_attention"], 1)
+    # the plain path takes 9216 tokens, not 8448: the same window and band blocks
+    long_logits_vs_plain(cfg, params, [rng.randrange(cfg.vocab_size) for _ in range(9216)],
+                         dev, 9248)
     del params
     torch.cuda.empty_cache()
 
-    log("[6] launch/serve.py --arch qwen3-1.7b --batch 4 --prompt-len 256 --gen 16")
-    metrics = counted(6, ("flash_attention", "decode_attention"), lambda: serve.main(
-        ["--arch", QWEN, "--batch", "4", "--prompt-len", "256", "--gen", "16"],
-        config_overrides={"attn_kernel": "flash"}))
-    log(f"[6] per-token {metrics['per_token_ms']:.2f} ms, prefill {metrics['prefill_seconds']:.3f} s")
+    argv = ["--arch", QWEN, "--batch", "4", "--prompt-len", "256", "--gen", "16"]
+    for knob in ("flash", "block_sparse"):
+        log(f"[6] launch/serve.py {' '.join(argv)} (attn_kernel={knob!r})")
+        metrics, counts = counted(6, (f"{knob}_attention", "decode_attention"), lambda: serve.main(
+            argv, config_overrides={"attn_kernel": knob}))
+        log(f"[6] {knob}: per-token {metrics['per_token_ms']:.2f} ms, prefill "
+            f"{metrics['prefill_seconds']:.3f} s")
+        if knob == "block_sparse":
+            every_prefill(6, counts["block_sparse_attention"], 1)
     log(f"[4-6] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return total
 
@@ -644,6 +798,60 @@ def check_gossip_kernels(dev) -> dict:
     return records
 
 
+def check_block_topk(dev) -> dict:
+    """Block top-k against its plain version, bit for bit, at the trainer's
+    largest gossip chunk: 4 nodes x 2**24 f32 elements = [65536, 1024]
+    blocks, k = 256 (``KernelBlockTopK(0.25, 1024)``), with a zero row, a row
+    whose max ties more than k times and an all-negative row; then k = 1 and
+    k = block."""
+    import torch
+
+    from repro_torch.kernels import topk as ktopk
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    failures: list[str] = []
+    R, BLK, K = 4 * QWEN_CHUNK_ROWS * 128 // 1024, 1024, 256
+
+    def make():
+        return (torch.randn(R, BLK, generator=gen, device=dev) * 0.02,)
+
+    (x,) = make()
+    x[0] = 0.0
+    x[1, ::3] = 0.1
+    x[2] = -x[2].abs()
+    err = 0.0
+    for k in (K, 1, BLK):
+        out = ktopk.block_topk(x, k)
+        want = ktopk.block_topk_plain(x, k)
+        _exact(f"block_topk [{R},{BLK}] f32 k={k} (bits, -0.0 included)",
+               out.view(torch.int32), want.view(torch.int32), failures)
+        err = max(err, float((out - want).abs().max()))
+        if k == K:
+            kept = (out != 0).sum(1)
+            log(f"  block_topk k={K}: kept per row min {int(kept.min())} max {int(kept.max())} "
+                f"(row 1 ties {int((x[1].abs() == 0.1).sum())} at its max); dropped negatives "
+                f"signed -0.0: {bool(torch.signbit(out[2]).all())}")
+    sets = [(x,)] + [make() for _ in range(1)]
+    ms = time_ms(lambda a: ktopk.block_topk(a, K), sets, 20)
+    plain_ms = time_ms(lambda a: ktopk.block_topk_plain(a, K), sets, 3)
+    lib_ms = time_ms(lambda a: torch.topk(a.abs(), K, dim=1), sets, 10)
+    n = R * BLK
+    # per element: |x| and the max (2), 20 rounds of compare + count (40), the mask and product (2)
+    b_ms, b_by = bound(44 * n, 8 * n, "float32")
+    rec = dict(name="block_topk", route="cuda", source="src/repro_torch/csrc/block_topk.cu",
+               replaces="src/repro/kernels/topk.py:53", max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               shape=f"[{R},{BLK}] f32, k={K}")
+    log(f"  time block_topk [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (torch.topk of |x|, selection only) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), {b_ms / ms:.1%} of the bound")
+    del sets, x
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"block_topk disagrees with its plain version: {failures}")
+    return {"block_topk": rec}
+
+
 # ------------------------------------------------------------------ phase 8
 def round_full_width(dev) -> None:
     """One CHOCO round on qwen3-1.7b's largest gossip chunk, [4, 131072,
@@ -709,7 +917,7 @@ LOSS_REL_BOUND = 1e-3
 
 ROUND_SECTIONS = ("forward_backward", "optimizer", "dual", "consensus", "consensus_err")
 GOSSIP_KERNEL_NAMES = ("quantize_kernel", "dequantize_kernel", "fused_encode_kernel",
-                       "fused_mix_kernel")
+                       "fused_mix_kernel", "block_topk_kernel")
 
 
 def _profile_breakdown(prof, wall_s: float) -> dict:
@@ -742,8 +950,9 @@ def _profile_breakdown(prof, wall_s: float) -> dict:
 
 
 def train_full_width(dev) -> dict[str, int]:
-    """Phase 9: launch/train.py at full width, packed then fused; returns
-    the kernels' launch counts summed over both runs."""
+    """Phase 9: launch/train.py at full width, ``kq4b`` packed then fused,
+    then block top-k on its kernel; returns the kernels' launch counts summed
+    over the three runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -751,12 +960,13 @@ def train_full_width(dev) -> dict[str, int]:
     from repro_torch.core.gossip import _scan_plan, payload_bits
     from repro_torch.core.topology import ring
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ops import KernelQuantization
+    from repro_torch.kernels.ops import KernelBlockTopK, KernelQuantization
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
     from repro_torch.tree import leaves
 
     cfg = get_config(QWEN)
+    topk = KernelBlockTopK(0.25, 1024)
     m, K, steps = 4, 3, 3
     template = [torch.empty((m,) + tuple(p.shape), device="meta")
                 for p in leaves(T.abstract_train_params(cfg))]
@@ -764,17 +974,24 @@ def train_full_width(dev) -> dict[str, int]:
     for leaf in template:
         plan = _scan_plan(tuple(leaf.shape), leaf[0].numel(), 1 << 24)
         n_enc += 1 if plan is None else plan[1]
-    want_bits = payload_bits(KernelQuantization(4), template, ring(m)) + 32.0 * m * 2
+    dual_bits = 32.0 * m * 2  # lambda: m floats to each of the 2 ring neighbours
+    want_bits = {name: payload_bits(comp, template, ring(m)) + dual_bits
+                 for name, comp in (("packed", KernelQuantization(4)),
+                                    ("fused", KernelQuantization(4)), ("block_topk", topk))}
+    want_gamma = {"block_topk": 0.5 * topk.fraction}
     expect = {
         "packed": {"quantize": m * n_enc, "dequantize": m * (1 + K) * n_enc},
         "fused": {"fused_encode": n_enc, "fused_mix": n_enc * -(-K // 8)},
+        "block_topk": {"block_topk": n_enc},  # one launch per chunk for all nodes
     }
     log(f"[9] chunk plan: {n_enc} encodes per round; expected launches per round {expect}")
 
     total = {name: 0 for name in _build.COUNTERS}
     runs = {}
-    for name, extra in (("packed", []), ("fused", ["--fused-gossip"])):
-        log(f"[9] launch/train.py {' '.join(TRAIN_ARGS + extra)}")
+    for name, extra, comp in (("packed", [], None), ("fused", ["--fused-gossip"], None),
+                              ("block_topk", [], topk)):
+        log(f"[9] launch/train.py {' '.join(TRAIN_ARGS + extra)}"
+            + (f" with compressor={comp!r} in place of the spec" if comp else ""))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         prof_out = {}
@@ -790,7 +1007,7 @@ def train_full_width(dev) -> dict[str, int]:
             return out
 
         _build.reset_launch_counts()
-        metrics = train.main(TRAIN_ARGS + extra, wrap_step=wrap_step)
+        metrics = train.main(TRAIN_ARGS + extra, wrap_step=wrap_step, compressor=comp)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -807,8 +1024,9 @@ def train_full_width(dev) -> dict[str, int]:
         log(f"[9] {name}: s/step {[round(x, 3) for x in metrics['step_seconds']]} (round 1 "
             f"under the profiler); "
             f"bits/round {metrics['bits_per_round']:.6e} (payload_bits of the stacked "
-            f"template + dual: {want_bits:.6e}); gamma {metrics['gamma']:.6e}; "
-            f"lambda_max {[h['lambda_max'] for h in hist]}")
+            f"template + dual: {want_bits[name]:.6e}); gamma {metrics['gamma']:.6e}; "
+            f"losses {[h['losses'] for h in hist]}; consensus error "
+            f"{[h['consensus_err'] for h in hist]}; lambda_max {[h['lambda_max'] for h in hist]}")
         pb = _profile_breakdown(prof_out["prof"], prof_out["wall"])
         log(f"[9] {name} round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, kernels "
             f"busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%} of the wall)")
@@ -816,17 +1034,22 @@ def train_full_width(dev) -> dict[str, int]:
             f"; device span ms by section {({k: round(v, 1) for k, v in pb['spans_ms'].items()})}")
         for ms_, count, key in pb["top"]:
             log(f"[9]   {ms_:9.2f} ms x{count:<6d} {key[:90]}")
-        if not finite or metrics["bits_per_round"] != want_bits:
+        if not finite or metrics["bits_per_round"] != want_bits[name]:
             raise AssertionError(f"phase 9 {name}: non-finite losses / consensus error, or "
                                  f"bits/round != payload_bits")
+        if name in want_gamma and metrics["gamma"] != want_gamma[name]:
+            raise AssertionError(f"phase 9 {name}: gamma {metrics['gamma']} != "
+                                 f"{want_gamma[name]} (0.5 delta)")
         runs[name] = hist
-    p, f = runs["packed"], runs["fused"]
-    if p[0]["losses"] != f[0]["losses"]:
-        raise AssertionError(f"step-0 losses differ: {p[0]['losses']} vs {f[0]['losses']}")
+    p, f, t = runs["packed"], runs["fused"], runs["block_topk"]
+    # round 0's losses come before any gossip: one seed, one model, one batch
+    if not p[0]["losses"] == f[0]["losses"] == t[0]["losses"]:
+        raise AssertionError(f"step-0 losses differ: {p[0]['losses']} / {f[0]['losses']} / "
+                             f"{t[0]['losses']}")
     rel = max(abs(a - b) / abs(b) for s_ in (1, 2) for a, b in zip(p[s_]["losses"],
                                                                    f[s_]["losses"]))
-    log(f"[9] step-0 losses equal (packed == fused); steps 1-2 max relative difference "
-        f"{rel:.3e} (bound {LOSS_REL_BOUND})")
+    log(f"[9] step-0 losses equal (packed == fused == block_topk); steps 1-2 max relative "
+        f"difference packed vs fused {rel:.3e} (bound {LOSS_REL_BOUND})")
     if rel > LOSS_REL_BOUND:
         raise AssertionError("packed and fused trainers disagree")
     torch.cuda.empty_cache()
@@ -834,18 +1057,30 @@ def train_full_width(dev) -> dict[str, int]:
 
 
 # ----------------------------------------------------------------- phase 10
+# worst accuracies of the reference's quickstart (JAX, CPU) with top10 gossip
+TOP10_REFERENCE_WORST = {"AD-GDA": 0.242, "CHOCO-SGD": 0.170}
+
+
 def quickstart(dev) -> None:
     from repro_torch.launch.quickstart import run
 
-    t0 = time.perf_counter()
-    res = run(600, compressor="kq4b", device=dev)
-    log(f"[10] quickstart, 10 nodes, ring, kq4b fused, 600 rounds each: "
-        f"{time.perf_counter() - t0:.1f} s")
-    log(f"[10] {'':12s} {'majority':>9s} {'minority':>9s} {'worst':>9s}")
-    for name, acc in res.items():
-        log(f"[10] {name:12s} {acc['majority']:9.3f} {acc['minority']:9.3f} {acc['worst']:9.3f}")
-    if res["AD-GDA"]["worst"] < res["CHOCO-SGD"]["worst"]:
-        raise AssertionError("AD-GDA's worst accuracy fell below CHOCO-SGD's")
+    for comp, path in (("kq4b", "fused"), ("top10", "packed")):
+        t0 = time.perf_counter()
+        res = run(600, compressor=comp, device=dev)
+        log(f"[10] quickstart, 10 nodes, ring, {comp} {path}, 600 rounds each: "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[10] {'':12s} {'majority':>9s} {'minority':>9s} {'worst':>9s}")
+        for name, acc in res.items():
+            log(f"[10] {name:12s} {acc['majority']:9.3f} {acc['minority']:9.3f} "
+                f"{acc['worst']:9.3f}")
+        if res["AD-GDA"]["worst"] < res["CHOCO-SGD"]["worst"]:
+            raise AssertionError(f"{comp}: AD-GDA's worst accuracy fell below CHOCO-SGD's")
+        if comp == "top10":
+            off = {n: abs(res[n]["worst"] - w) for n, w in TOP10_REFERENCE_WORST.items()}
+            log(f"[10] top10 worst against the reference's {TOP10_REFERENCE_WORST}: "
+                f"|difference| {off} (bound 0.01)")
+            if max(off.values()) > 0.01:
+                raise AssertionError("top10 quickstart departs from the reference's accuracies")
 
 
 def main(argv=None) -> int:
@@ -866,6 +1101,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
     # the card's name and power limit, as nvidia-smi gives them
     print(gpu_name_and_limit(), flush=True)
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -882,7 +1118,9 @@ def main(argv=None) -> int:
     if 2 in phases:
         log("[2] kernels against their plain versions")
         records = check_kernels(dev)
+        records.update(check_block_sparse(dev))
         records.update(check_gossip_kernels(dev))
+        records.update(check_block_topk(dev))
     if 3 in phases:
         model_vs_plain(dev)
     launches = {}  # from the main paths' own runs only; null when they did not run
@@ -899,6 +1137,8 @@ def main(argv=None) -> int:
     if 10 in phases:
         quickstart(dev)
 
+    log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
+    print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     summary = [{k: ({**r, "launches": launches.get(r["name"])})[k] for k in keys}

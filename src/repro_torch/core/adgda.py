@@ -43,7 +43,7 @@ class ADGDAConfig:
     dropout: float = 0.0  # not yet ported
     topology_p: float | None = None  # edge probability for erdos_renyi
     topology_seed: int = 0  # graph-sampling seed (erdos_renyi)
-    compressor: str = "q8b"
+    compressor: str | Compressor = "q8b"  # a spec, or a Compressor object
     regularizer: str = "chi2"
     alpha: float = 0.01
     eta_theta: float = 0.1
@@ -89,7 +89,8 @@ class ADGDAConfig:
 
     def build(self) -> tuple[Topology, Compressor]:
         """(topology, compressor) for the consensus layer."""
-        comp = make_compressor(self.compressor)
+        comp = (self.compressor if isinstance(self.compressor, Compressor)
+                else make_compressor(self.compressor))
         kw = {}
         if self.topology == "erdos_renyi":
             if self.topology_p is not None:

@@ -1,5 +1,6 @@
 """Compression operators Q for compressed consensus (paper Assumption 3.2),
-PyTorch port of ``repro.core.compression`` (top-k operators not yet ported).
+PyTorch port of ``repro.core.compression``: identity, random quantization,
+global and blockwise top-k.
 
 Every operator satisfies E ||Q(x) - x||^2 <= (1 - delta) ||x||^2.  Operators
 act on a whole node axis at once (the reference vmaps them over it):
@@ -8,10 +9,13 @@ act on a whole node axis at once (the reference vmaps them over it):
 shape, dtype)`` returns [m, *shape].  The noise is an argument, drawn by the
 gossip layer from the trainer's ``torch.Generator`` (or injected), so two
 gossip paths that draw the same shapes in the same order quantize alike.
+The top-k operators draw no noise; they select with ``torch.topk``, as the
+reference does with ``jax.lax.top_k`` (the two order ties differently).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -19,7 +23,8 @@ import torch
 
 from repro_torch.kernels.ref import f32_full
 
-__all__ = ["Compressor", "Identity", "RandomQuantization", "make_compressor"]
+__all__ = ["BlockTopK", "Compressor", "Identity", "RandomQuantization", "TopK",
+           "make_compressor"]
 
 
 class Compressor:
@@ -110,10 +115,88 @@ class RandomQuantization(Compressor):
         return self.bits + 1 + 32.0 / max(d, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Global top-K magnitude sparsification (Stich et al. 2018); delta = K/d.
+
+    Payload per node: the kept ``values`` [m, k] f32 and their flat
+    ``indices`` [m, k] int32.
+    """
+
+    fraction: float = 0.25
+
+    @property
+    def delta(self):
+        return self.fraction
+
+    def k_for(self, d: int) -> int:
+        return max(1, int(round(self.fraction * d)))
+
+    def encode(self, x, xi=None):
+        flat = x.reshape(x.shape[0], -1).float()
+        _, idx = torch.topk(flat.abs(), self.k_for(flat.shape[1]), dim=1)
+        return {"values": torch.gather(flat, 1, idx), "indices": idx.to(torch.int32)}
+
+    def decode(self, payload, shape, dtype):
+        d = int(np.prod(shape)) if len(shape) else 1
+        vals = payload["values"]
+        out = torch.zeros(vals.shape[0], d, dtype=torch.float32, device=vals.device)
+        out.scatter_(1, payload["indices"].long(), vals)
+        return out.reshape((vals.shape[0],) + tuple(shape)).to(dtype)
+
+    def bits_per_element(self, d):
+        # (32-bit value + 32-bit index) per *actually kept* element: encode
+        # transmits k_for(d) pairs, which rounding (and the k >= 1 floor)
+        # makes different from fraction*d at small d
+        return 64.0 * self.k_for(d) / max(d, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTopK(Compressor):
+    """Blockwise top-k: keep the top round(fraction*B) magnitudes per block.
+
+    Selection is local to a block, so indices cost log2(B) bits; the
+    per-block tail bound gives the same contraction delta = K/d.  Payload
+    per node: ``values`` [m, nb, k] f32 and in-block ``indices`` [m, nb, k]
+    int32, each node's flat vector zero-padded to nb blocks.
+    """
+
+    fraction: float = 0.25
+    block: int = 1024
+
+    @property
+    def delta(self):
+        return self.fraction
+
+    def k_per_block(self) -> int:
+        return max(1, int(round(self.fraction * self.block)))
+
+    def encode(self, x, xi=None):
+        m = x.shape[0]
+        flat = x.reshape(m, -1).float()
+        pad = (-flat.shape[1]) % self.block
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        blocks = flat.reshape(m, -1, self.block)
+        _, idx = torch.topk(blocks.abs(), self.k_per_block(), dim=2)
+        return {"values": torch.gather(blocks, 2, idx), "indices": idx.to(torch.int32)}
+
+    def decode(self, payload, shape, dtype):
+        d = int(np.prod(shape)) if len(shape) else 1
+        vals = payload["values"]
+        m, nb, _ = vals.shape
+        blocks = torch.zeros(m, nb, self.block, dtype=torch.float32, device=vals.device)
+        blocks.scatter_(2, payload["indices"].long(), vals)
+        return blocks.reshape(m, -1)[:, :d].reshape((m,) + tuple(shape)).to(dtype)
+
+    def bits_per_element(self, d):
+        return (32.0 + math.log2(self.block)) * self.fraction
+
+
 def make_compressor(spec: str) -> Compressor:
     """Parse 'none' | 'qXb' (e.g. q4b) | 'kqXb' (CUDA kernel-backed, packed
-    wire format, supports the fused gossip round).  Top-k specs ('topK%',
-    'btopK%') are not yet ported."""
+    wire format, supports the fused gossip round) | 'topK%' (e.g. top10) |
+    'btopK%'."""
     spec = spec.lower().strip()
     if spec in ("none", "identity"):
         return Identity()
@@ -130,8 +213,8 @@ def make_compressor(spec: str) -> Compressor:
         return KernelQuantization(bits=bits)
     if spec.startswith("q") and spec.endswith("b"):
         return RandomQuantization(bits=int(spec[1:-1]))
-    if spec.startswith("btop") or spec.startswith("top"):
-        raise NotImplementedError(
-            f"compressor {spec!r} is not yet ported to repro_torch; see ROADMAP.md"
-        )
+    if spec.startswith("btop"):
+        return BlockTopK(fraction=float(spec[4:]) / 100.0)
+    if spec.startswith("top"):
+        return TopK(fraction=float(spec[3:]) / 100.0)
     raise ValueError(f"unknown compressor spec {spec!r}")

@@ -12,7 +12,8 @@ tracker ``s_i``.  One round:
     theta_hat <- theta_hat + q_i
     s_i       <- s_i + sum_j w_ij q_j                            # the wire
 
-``packed=True`` mixes the *encoded payload* (rolled packed ints, decoded per
+``packed=True`` mixes the *encoded payload* (rolled packed ints, top-k
+values and indices, or block top-k's masked residual, decoded per
 neighbour); ``packed=False`` decodes first; ``fused=True`` runs the two
 single-pass CUDA kernels (``kernels/choco_fused.py``).
 
@@ -99,9 +100,11 @@ def mix_stacked(tree, topology: Topology):
 
 
 def _roll_payload(payload, shift: int):
+    """Roll every tensor of a payload (a dict of tensors, or one tensor such
+    as block top-k's dense masked residual) along the node axis."""
     if shift == 0:
         return payload
-    return {k: torch.roll(v, shift, 0) for k, v in payload.items()}
+    return tree_map(lambda v: torch.roll(v, shift, 0), payload)
 
 
 def _mix_payload(compressor, payload, shape, dtype, topology: Topology):

@@ -73,4 +73,34 @@ __device__ __forceinline__ void load_as_float(const T* __restrict__ p, float* ou
   }
 }
 
+// (batch, seq, head) strides in elements of a [B, S, H, hd] tensor
+struct Strides {
+  long long b, s, h;
+};
+
+// Stage `rows` rows of HD elements starting at row `row0` (rows >= n_valid
+// are zero-filled) into shared memory with row stride LD, scaled by `mul`;
+// NT threads of the block share the work.
+template <typename T, int HD, int LD, int NT>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
+                                          long long stride_s, int row0, int n_valid, int rows,
+                                          float mul) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int CH = HD / V;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
+    const int r = idx / CH;
+    const int c = (idx % CH) * V;
+    float vals[V];
+    if (row0 + r < n_valid) {
+      load_as_float<T, V>(src + (long long)(row0 + r) * stride_s + c, vals);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) vals[i] = 0.f;
+    }
+    float* d = dst + r * LD + c;
+#pragma unroll
+    for (int i = 0; i < V; ++i) d[i] = vals[i] * mul;
+  }
+}
+
 }  // namespace repro

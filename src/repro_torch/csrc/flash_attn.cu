@@ -35,34 +35,6 @@ constexpr int BQ = 64;        // queries per block
 constexpr int BK = 32;        // keys per kv tile
 constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
 
-struct Strides {
-  long long b, s, h;
-};
-
-// Stage `rows` rows of HD elements starting at row `row0` (rows >= n_valid
-// are zero-filled) into shared memory with row stride LD, scaled by `mul`.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          long long stride_s, int row0, int n_valid, int rows,
-                                          float mul) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CH = HD / V;
-  for (int idx = threadIdx.x; idx < rows * CH; idx += THREADS) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * V;
-    float vals[V];
-    if (row0 + r < n_valid) {
-      load_as_float<T, V>(src + (long long)(row0 + r) * stride_s + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) vals[i] = 0.f;
-    }
-    float* d = dst + r * LD + c;
-#pragma unroll
-    for (int i = 0; i < V; ++i) d[i] = vals[i] * mul;
-  }
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -91,7 +63,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int rg = tid / 16;  // rows 4*rg .. 4*rg+3 of the q tile
   const int cg = tid % 16;  // columns cg + 16*j
 
-  load_tile<T, HD, LDQ>(Qs, qb, qs.s, q0, Sq, BQ, scale);
+  load_tile<T, HD, LDQ, THREADS>(Qs, qb, qs.s, q0, Sq, BQ, scale);
 
   // live kv tiles: [kv_begin, kv_end)
   const int q_last = min(q0 + BQ, Sq) - 1;
@@ -116,8 +88,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = kv_begin; kt < kv_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // previous tile fully consumed (and Q staged)
-    load_tile<T, HD, LDQ>(Ks, kb, ks.s, k0, Sk, BK, 1.f);
-    load_tile<T, HD, LDV>(Vs, vb, vs.s, k0, Sk, BK, 1.f);
+    load_tile<T, HD, LDQ, THREADS>(Ks, kb, ks.s, k0, Sk, BK, 1.f);
+    load_tile<T, HD, LDV, THREADS>(Vs, vb, vs.s, k0, Sk, BK, 1.f);
     __syncthreads();
 
     float s[4][NJ];

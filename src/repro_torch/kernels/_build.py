@@ -35,10 +35,13 @@ SOURCES = {
     "decode_attn": "decode_attn.cu",
     "quantize": "quantize.cu",
     "choco_fused": "choco_fused.cu",
+    "block_topk": "block_topk.cu",
+    "block_sparse_attn": "block_sparse_attn.cu",
 }
 #: flags of one library on top of NVCC_FLAGS: the compression kernels must
 #: round exactly as their plain versions, so no FMA contraction there
-EXTRA_FLAGS = {"quantize": ["-fmad=false"], "choco_fused": ["-fmad=false"]}
+EXTRA_FLAGS = {"quantize": ["-fmad=false"], "choco_fused": ["-fmad=false"],
+               "block_topk": ["-fmad=false"]}
 #: nvcc's stderr per built library (ptxas register / spill report)
 BUILD_LOG: dict[str, str] = {}
 

@@ -1,26 +1,32 @@
-"""Public ops over the kernels (``repro.kernels.ops`` without block top-k).
+"""Public ops over the kernels (``repro.kernels.ops``).
 
-Attention -- prefill: ``[B, S, H, hd]`` with kv heads already repeated;
+Attention -- prefill: ``[B, S, H, hd]`` with kv heads already repeated
+(flash, sliding window, block-sparse over a :class:`BlockSparsePattern`);
 decode: a ``[B, 1, H, hd]`` query over a ``[B, L, KV, hd]`` cache, query
 heads kv-major (head ``j*G+g`` belongs to kv head ``j``).
 
 Compression -- padding any flat vector to the quantize kernels' ``[rows,
-128]`` layout, and :class:`KernelQuantization`, the compressor whose wire is
-the packed payload and which runs the fused CHOCO round.
+128]`` layout; :class:`KernelQuantization`, the compressor whose wire is
+the packed payload and which runs the fused CHOCO round; and block top-k
+(:func:`block_topk`, :class:`KernelBlockTopK`), whose payload is the dense
+masked residual.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.compression import Compressor
+from repro_torch.kernels import block_sparse as _sparse
 from repro_torch.kernels import choco_fused as _fused
 from repro_torch.kernels import decode as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import sliding_window as _sliding
+from repro_torch.kernels import topk as _topk
 from repro_torch.kernels.ref import LANES, _rows_for, f32_full, quantize_kv_ref, tau_for
 
 
@@ -33,6 +39,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
 def sliding_window_attention(q, k, v, *, window: int):
     """Causal sliding-window attention over [B, S, H, hd]."""
     return _sliding.sliding_window_attention(q, k, v, window=window)
+
+
+def block_sparse_attention(q, k, v, pattern):
+    """Block-sparse attention over [B, S, H, hd]; the pattern's bitmap picks
+    which (q-block, kv-block) tiles are computed (see kernels/block_sparse.py)."""
+    return _sparse.block_sparse_attention(q, k, v, pattern)
 
 
 def decode_attention_kernel(q, k, v, valid, *, k_scale=None, v_scale=None):
@@ -133,15 +145,45 @@ class KernelQuantization(Compressor):
         return self.bits + 1 + 32.0 / max(d, 1)
 
 
+def block_topk(x: torch.Tensor, fraction: float = 0.25, block: int = 1024) -> torch.Tensor:
+    """Dense blockwise top-k sparsification of a node-stacked tensor [m, ...]:
+    each node's flat vector in f32, padded to a multiple of ``block``, masked
+    to the top ``round(fraction * block)`` magnitudes of each block, unpadded
+    and cast back (the reference vmaps its ``block_topk`` over nodes).  All
+    nodes' blocks go through one kernel launch."""
+    m = x.shape[0]
+    flat = x.reshape(m, -1).float()
+    d = flat.shape[1]
+    pad = (-d) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    k = max(1, int(round(fraction * block)))
+    out = _topk.block_topk(flat.reshape(-1, block), k)
+    return out.reshape(m, -1)[:, :d].reshape(x.shape).to(x.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelBlockTopK(Compressor):
-    """Block top-k on the bisection kernel: not yet ported."""
+    """Block top-k on the bisection kernel (``kernels/topk.py``).
+
+    ``encode`` returns the dense masked residual [m, ...] (the sparse
+    values + indices wire format is :class:`~repro_torch.core.compression.BlockTopK`'s);
+    its bit count is that format's, and the contraction factor is
+    ``fraction``.
+    """
 
     fraction: float = 0.25
     block: int = 1024
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "KernelBlockTopK (kernel 9, block_topk) is not yet ported to repro_torch; "
-            "see ROADMAP.md"
-        )
+    @property
+    def delta(self):
+        return self.fraction
+
+    def encode(self, x, xi=None):
+        return block_topk(x, self.fraction, self.block)
+
+    def decode(self, payload, shape, dtype):
+        return payload.reshape((payload.shape[0],) + tuple(shape)).to(dtype)
+
+    def bits_per_element(self, d):
+        return (32.0 + math.log2(self.block)) * self.fraction

@@ -1,12 +1,13 @@
-"""Plain PyTorch oracles for the port's kernels (``repro.kernels.ref``
-without block top-k).
+"""Plain PyTorch oracles for the port's kernels (``repro.kernels.ref``).
 
 Attention: exactly what the kernels compute, with materialized scores and the
-same finite ``-1e30`` mask sentinel, in float32.
+same finite ``-1e30`` mask sentinel, in float32; block-sparse attention
+expands its pattern's block bitmap to an element mask.
 
 Compression: stochastic b-bit quantization with 2^b levels {0..2^b-1} and
 bit-packing (``8/bits`` level rows per uint8 row, 8 sign rows per uint8
-row), and the two fused CHOCO-round passes.  Every operation is one IEEE
+row), the two fused CHOCO-round passes, and block top-k by threshold
+bisection.  Every operation is one IEEE
 rounding in the order the reference takes, so the kernels, built without
 FMA contraction, equal these bit for bit.  Scalars that enter a division
 are device tensors: PyTorch on the card divides by a host scalar as a
@@ -19,6 +20,7 @@ import math
 import torch
 
 NEG_INF = -1e30
+BISECT_ITERS = 20
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
@@ -37,6 +39,41 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
         mask &= qpos[:, None] >= kpos[None, :]
     if window is not None:
         mask &= qpos[:, None] - kpos[None, :] < window
+    s = s.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqs,bsk->bqk", p, v.float()).to(q.dtype)
+
+
+def block_sparse_mask(pattern, device) -> torch.Tensor:
+    """The (q, k) pairs a ``BlockSparsePattern`` attends, [Sq, Sk] bool: its
+    block bitmap expanded to elements, live blocks AND, for PARTIAL blocks,
+    the causal / window mask."""
+    block = torch.as_tensor(pattern.bitmap, device=device)  # [nq, nk]
+
+    def expand(b):
+        return b.repeat_interleave(pattern.block_q, 0).repeat_interleave(pattern.block_k, 1)
+
+    qpos = torch.arange(pattern.seq_q, device=device)
+    kpos = torch.arange(pattern.seq_k, device=device)
+    elem = torch.ones(pattern.seq_q, pattern.seq_k, dtype=torch.bool, device=device)
+    if pattern.causal:
+        elem &= qpos[:, None] >= kpos[None, :]
+    if pattern.window is not None:
+        elem &= qpos[:, None] - kpos[None, :] < pattern.window
+    return expand(block != 0) & (expand(block == 2) | elem)
+
+
+def block_sparse_attention_ref(q, k, v, pattern, *, scale=None):
+    """q, k, v: [BH, S, hd] -> [BH, Sq, hd] in q.dtype, over ``pattern``'s
+    (a ``BlockSparsePattern``) block bitmap: materialized-softmax attention
+    under :func:`block_sparse_mask`.  Patterns keep the diagonal live, so
+    every q row has a live key.
+    """
+    hd = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    mask = block_sparse_mask(pattern, q.device)
+    s = torch.einsum("bqk,bsk->bqs", q.float(), k.float()) * scale
     s = s.masked_fill(~mask[None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqs,bsk->bqk", p, v.float()).to(q.dtype)
@@ -180,3 +217,26 @@ def digest_ref(x: torch.Tensor) -> torch.Tensor:
     ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
     total = x.reshape(x.shape[0], -1).view(ints).to(torch.int64).sum(1)
     return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+# ---------------------------------------------------------------- block top-k
+def block_topk_ref(x: torch.Tensor, k: int, iters: int = BISECT_ITERS) -> torch.Tensor:
+    """Per-row top-k masking via threshold bisection; x: [nb, block] f32.
+
+    Returns x masked to (ties aside) its k largest-|.| entries per row: every
+    entry with |x| >= the bisection threshold is kept, so a row with ties
+    may keep more than k.  A masked entry is ``x * 0.0`` (``-0.0`` for a
+    negative one), as in the reference.
+    """
+    assert x.ndim == 2
+    mag = x.abs()
+    hi = mag.amax(dim=1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = (mag >= mid).sum(dim=1, keepdim=True)
+        too_many = cnt > k
+        lo = torch.where(too_many, mid, lo)
+        hi = torch.where(too_many, hi, mid)
+    mask = mag >= hi
+    return x * mask.to(x.dtype)

@@ -11,9 +11,11 @@ CHOCO-SGD's.
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart                 # card, kq4b fused
   PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu --compressor q4b
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu --compressor top10
 
-A kernel compressor (``kq*b``) gossips on the fused round; ``q4b`` is the
-reference quickstart's own setting.
+A kernel compressor (``kq*b``) gossips on the fused round, any other
+(``q4b``, the reference quickstart's own setting, or ``top10`` / ``btop10``,
+Table 2's sparsifiers) on the packed path.
 """
 from __future__ import annotations
 

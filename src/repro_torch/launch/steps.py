@@ -10,6 +10,7 @@ on the consensus model (no node axis).
 from __future__ import annotations
 
 from repro_torch.core.adgda import ADGDAConfig, adgda_trainer
+from repro_torch.core.compression import Compressor
 from repro_torch.core.trainer import DecentralizedTrainer
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -27,7 +28,7 @@ def make_trainer(
     topology_p: float | None = None,
     topology_seed: int = 0,
     fault_spec: str | None = None,
-    compressor: str = "q4b",
+    compressor: str | Compressor = "q4b",
     alpha: float = 0.01,
     eta_theta: float = 0.1,
     eta_lambda: float = 0.01,

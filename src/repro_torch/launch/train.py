@@ -7,16 +7,23 @@ synthetic heterogeneous LM stream, all nodes stacked on one card.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --reduced --steps 3 --device cpu                      # plain CPU path
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --reduced --steps 3 --compressor top10 --device cpu   # top-k gossip
+
 The flags and the log line are the reference's.  ``kq*b`` compressors run
 the gossip through the quantize / dequantize CUDA kernels, and
-``--fused-gossip`` through the fused CHOCO kernels.  Not yet ported (they
-raise, see ROADMAP.md): ``--topology-schedule``, ``--dropout``,
+``--fused-gossip`` through the fused CHOCO kernels; ``topK`` / ``btopK``
+(global / blockwise top-K%) gossip values and indices on the packed path.
+Not yet ported (they raise, see ROADMAP.md): ``--topology-schedule``, ``--dropout``,
 ``--fault-spec``, ``--consensus gt``, ``--gossip-backend ppermute``,
 ``--local-steps > 1`` and ``--checkpoint`` / ``--resume``.
 
 Programmatic callers get the run's metrics from :func:`main`, and may pass
 ``wrap_step(step, run)`` to run one round inside their own context (a
-profiler, say): it must call ``run()`` and return its result.
+profiler, say): it must call ``run()`` and return its result; and
+``compressor=`` a :class:`~repro_torch.core.compression.Compressor` object in
+place of the ``--compressor`` spec (``KernelBlockTopK(0.25, 1024)``, say:
+block top-k on its CUDA kernel, which no spec names).
 """
 from __future__ import annotations
 
@@ -53,7 +60,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="graph-sampling seed (erdos_renyi)")
     ap.add_argument("--fault-spec", default=None, help="not yet ported")
     ap.add_argument("--compressor", default="q4b",
-                    help="none | qXb | kqXb (CUDA kernels, packed wire, fused round)")
+                    help="none | qXb | kqXb (CUDA kernels, packed wire, fused round) | "
+                         "topK | btopK (top-K%% values + indices)")
     ap.add_argument("--alpha", type=float, default=0.01)
     ap.add_argument("--eta-theta", type=float, default=0.05)
     ap.add_argument("--eta-lambda", type=float, default=0.01)
@@ -89,8 +97,9 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None, *, wrap_step=None) -> dict:
+def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
     args = _parser().parse_args(argv)
+    comp_name = args.compressor if compressor is None else repr(compressor)
     if args.checkpoint or args.resume:
         raise NotImplementedError(
             "--checkpoint / --resume (trainer-state checkpoints) are not yet ported to "
@@ -114,7 +123,7 @@ def main(argv=None, *, wrap_step=None) -> dict:
         topology_p=args.topology_p,
         topology_seed=args.topology_seed,
         fault_spec=args.fault_spec,
-        compressor=args.compressor,
+        compressor=args.compressor if compressor is None else compressor,
         alpha=args.alpha,
         eta_theta=args.eta_theta,
         eta_lambda=args.eta_lambda,
@@ -138,7 +147,7 @@ def main(argv=None, *, wrap_step=None) -> dict:
     params = T.init_train_params(cfg, seed=args.seed, device=dev)
     n_params = sum(p.numel() for p in leaves(params))
     print(f"arch={cfg.name} params={n_params:,} nodes={args.nodes} "
-          f"compressor={args.compressor} topology={args.topology}", flush=True)
+          f"compressor={comp_name} topology={args.topology}", flush=True)
     state = trainer.init(params, seed=args.seed + 1)
     del params
 

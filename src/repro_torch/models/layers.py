@@ -13,12 +13,14 @@ of a multi-GiB cache on the card) and takes per-row positions.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.block_sparse import BlockSparsePattern
 from repro_torch.kernels.ref import NEG_INF
 
 CHUNK_THRESHOLD = 4096
@@ -131,16 +133,28 @@ def _attend(q, k, v, mask, scale):
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
 
+@functools.lru_cache(maxsize=64)
+def _sparse_pattern(seq: int, window, block: int) -> BlockSparsePattern:
+    if window is None:
+        return BlockSparsePattern.causal_pattern(seq, seq, block, block)
+    return BlockSparsePattern.windowed(seq, seq, window, block, block)
+
+
 def _kernel_attention(q, k, v, kernel: str, window: int | None):
-    """Route [B, S, H, hd] q/k/v through a kernel of ``kernels/``."""
+    """Route [B, S, H, hd] q/k/v through a kernel of ``kernels/``, or return
+    None when no kernel fits the shape (the caller keeps the plain path, as
+    the reference does: block-sparse needs a block of 128/64/32/16/8 that
+    divides S)."""
+    S = q.shape[1]
     if kernel == "flash":
-        if window is not None and q.shape[1] >= 256:
+        if window is not None and S >= 256:
             return ops.sliding_window_attention(q, k, v, window=window)
         return ops.flash_attention(q, k, v, causal=True, window=window)
     if kernel == "block_sparse":
-        raise NotImplementedError(
-            "attn_kernel='block_sparse' is not yet ported to repro_torch; see ROADMAP.md"
-        )
+        block = next((b for b in (128, 64, 32, 16, 8) if S % b == 0), None)
+        if block is None:
+            return None
+        return ops.block_sparse_attention(q, k, v, _sparse_pattern(S, window, block))
     raise ValueError(f"unknown attn_kernel {kernel!r}")
 
 
@@ -159,9 +173,8 @@ def apply_attention(params, x, cfg, *, causal: bool = True, window: int | None =
     scale = 1.0 / math.sqrt(cfg.hd)
 
     kernel = cfg.attn_kernel
-    if kernel is not None and causal:
-        out = _kernel_attention(q, k, v, kernel, window)
-    else:
+    out = _kernel_attention(q, k, v, kernel, window) if kernel is not None and causal else None
+    if out is None:
         def mask_for(q_pos):
             if not causal and window is None:
                 return None

@@ -1,7 +1,7 @@
 """repro_torch on the card: each CUDA kernel against its plain version, the
 reduced model and engine with the kernels against the plain path, and the
-gossip kernels (quantize, dequantize, fused encode, fused mix) against
-their plain versions bit for bit, alone and inside a trainer round.
+gossip kernels (quantize, dequantize, fused encode, fused mix, block top-k)
+against their plain versions bit for bit, alone and inside a trainer round.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX (the card's machine has none); run it there with
@@ -24,9 +24,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import gossip
 from repro_torch.core.topology import ring
 from repro_torch.kernels import _build
+from repro_torch.kernels import block_sparse as kbs
 from repro_torch.kernels import choco_fused as kc
 from repro_torch.kernels import quantize as kq
-from repro_torch.kernels.ops import KernelQuantization
+from repro_torch.kernels import ops
+from repro_torch.kernels import topk as ktopk
+from repro_torch.kernels.ops import KernelBlockTopK, KernelQuantization
 from repro_torch.kernels import decode as kd
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import sliding_window as ksw
@@ -138,6 +141,59 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                             torch.ones(1, 8, dtype=torch.bool, device=cuda))
 
 
+def _pattern(layout, S, block, block_k=None):
+    bk = block_k or block
+    if layout == "causal":
+        return kbs.BlockSparsePattern.causal_pattern(S, S, block, bk)
+    if layout == "windowed":
+        return kbs.BlockSparsePattern.windowed(S, S, 3 * block // 2 + 5, block, bk)
+    return kbs.BlockSparsePattern.strided(S, S, local_blocks=2, stride=3, block_q=block,
+                                          block_k=bk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 64, 16])
+@pytest.mark.parametrize("layout", ["causal", "windowed", "strided"])
+def test_block_sparse_kernel_matches_plain(cuda, layout, block, dtype):
+    S = 8 * block if block < 128 else 512
+    g = torch.Generator(device=cuda).manual_seed(block)
+    q, k, v = (_randn(g, 2, S, 4, 128, dtype=dtype, device=cuda) for _ in range(3))
+    pattern = _pattern(layout, S, block)
+    before = kbs.launches.count
+    out = kbs.block_sparse_attention(q, k, v, pattern)
+    assert kbs.launches.count == before + 1
+    ref = kbs.block_sparse_attention_plain(q, k, v, pattern)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("block_q,block_k,hd", [(8, 8, 64), (32, 8, 128), (8, 32, 64),
+                                                (128, 32, 128), (24, 40, 64)])
+def test_block_sparse_kernel_uneven_blocks(cuda, block_q, block_k, hd):
+    """block_q != block_k, blocks of 8, a head dim of 64, and blocks that are
+    no power of two (24 rows: blocks of 8 query rows; 40 keys: a 32-key
+    sub-tile and an 8-key one)."""
+    S = 240 if block_q == 24 else 256
+    g = torch.Generator(device=cuda).manual_seed(block_q + block_k)
+    q, k, v = (_randn(g, 1, S, 3, hd, dtype=torch.float32, device=cuda) for _ in range(3))
+    for layout in ("causal", "windowed", "strided"):
+        pattern = _pattern(layout, S, block_q, block_k)
+        torch.testing.assert_close(kbs.block_sparse_attention(q, k, v, pattern),
+                                   kbs.block_sparse_attention_plain(q, k, v, pattern), **F32)
+
+
+def test_block_sparse_kernel_reads_strided_views(cuda):
+    """The model's layout: k and v with kv heads repeated (a strided view)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = _randn(g, 2, 256, 8, 128, dtype=torch.bfloat16, device=cuda)
+    kv = _randn(g, 2, 256, 4, 128, dtype=torch.bfloat16, device=cuda)
+    k = kv[:, :, :, None].expand(2, 256, 4, 2, 128).reshape(2, 256, 8, 128)
+    v = torch.flip(k, dims=[2])
+    pattern = _pattern("windowed", 256, 64)
+    torch.testing.assert_close(kbs.block_sparse_attention(q, k, v, pattern).float(),
+                               kbs.block_sparse_attention_plain(q, k, v, pattern).float(), **BF16)
+
+
 def _reduced(**kw):
     return dataclasses.replace(get_config("qwen3-1.7b").reduced(layers=2), **kw)
 
@@ -169,6 +225,34 @@ def test_model_kernels_match_plain_path(cuda, cache_len):
     assert counts["flash_attention"] == cfg.num_layers and counts["decode_attention"] > 0
 
 
+@pytest.mark.parametrize("S,cache_len", [(16, 64), (24, 40), (10, 24)])
+def test_model_block_sparse_matches_plain_path(cuda, S, cache_len):
+    """Reduced qwen3 in f32: prefill through the block-sparse kernel (S of
+    16 and 24: blocks 16 and 8, windowed where cache_len exceeds 16) or, with
+    no block dividing S, the plain path; then decode through the kernel."""
+    cfg = _reduced()
+    params = T.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(S))
+    outs = {}
+    for knob in (None, "block_sparse"):
+        _build.reset_launch_counts()
+        c = dataclasses.replace(cfg, attn_kernel=knob)
+        logits, cache = T.prefill(params, {"tokens": toks}, c, cache_len)
+        seq = [logits]
+        tok = torch.argmax(logits[:, -1:], -1)
+        for i in range(6):
+            logits, cache = T.decode_step(params, tok, cache, S + i, c)
+            seq.append(logits)
+            tok = torch.argmax(logits, -1)
+        outs[knob] = seq
+    for a, b in zip(outs["block_sparse"], outs[None]):
+        torch.testing.assert_close(a, b, **LOGITS)
+    counts = _build.launch_counts()
+    assert counts["block_sparse_attention"] == (cfg.num_layers if S % 8 == 0 else 0)
+    assert counts["decode_attention"] > 0
+
+
 @pytest.mark.parametrize("quantized_kv", [False, True])
 def test_engine_kernels_match_plain_engine(cuda, quantized_kv):
     cfg = _reduced(long_context_window=None, quantized_kv=quantized_kv)
@@ -177,14 +261,14 @@ def test_engine_kernels_match_plain_engine(cuda, quantized_kv):
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 9, 5, 13, 7)]
     prompts[4] = prompts[0]  # admitted after the tick-0 burst: a prefix-cache hit
     runs = {}
-    for knob in (None, "flash"):
+    for knob in (None, "flash", "block_sparse"):
         reqs = [Request(prompt=list(p), max_new_tokens=5) for p in prompts]
         eng = ServeEngine(dataclasses.replace(cfg, attn_kernel=knob), params, max_slots=3,
                           cache_len=32, prompt_bucket=8, device=cuda)
         eng.run(reqs)
         assert all(r.done for r in reqs) and eng.prefix_hits == 1
         runs[knob] = [(r.output, r.admit_tick, r.finish_tick) for r in reqs]
-    assert runs["flash"] == runs[None]
+    assert runs["flash"] == runs[None] == runs["block_sparse"]
 
 
 # ------------------------------------------------------------ gossip kernels
@@ -259,3 +343,58 @@ def test_reduced_trainer_runs_through_the_gossip_kernels(cuda, fused):
     counts = _build.launch_counts()
     names = ("fused_encode", "fused_mix") if fused else ("quantize", "dequantize")
     assert all(counts[n] > 0 for n in names)
+
+
+# ------------------------------------------------------------------ block top-k
+def _topk_rows(case, g, device):
+    """(x [rows, block] f32, k) for one block top-k case."""
+    if case == "random":
+        return torch.randn(300, 1024, generator=g, device=device), 256
+    if case == "ties":  # few magnitudes; row 0 ties its max more than k times
+        x = torch.randint(1, 4, (64, 256), generator=g, device=device).float()
+        x = x * (torch.randint(0, 2, x.shape, generator=g, device=device) * 2 - 1)
+        x[0, ::2] = 3.0
+        return x, 100
+    if case == "zero_row":
+        x = torch.randn(16, 128, generator=g, device=device)
+        x[3] = 0.0
+        return x, 32
+    if case == "negative":
+        return -torch.randn(16, 128, generator=g, device=device).abs(), 16
+    if case == "k1":
+        return torch.randn(33, 512, generator=g, device=device), 1
+    if case == "k_block":
+        return torch.randn(8, 2048, generator=g, device=device), 2048
+    if case == "ragged_block":
+        return torch.randn(9, 300, generator=g, device=device), 75
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "zero_row", "negative", "k1", "k_block",
+                                  "ragged_block"])
+def test_block_topk_kernel_matches_plain_bit_for_bit(cuda, case):
+    x, k = _topk_rows(case, torch.Generator(device=cuda).manual_seed(len(case)), cuda)
+    before = ktopk.launches.count
+    out = ktopk.block_topk(x, k)
+    assert ktopk.launches.count == before + 1
+    want = ktopk.block_topk_plain(x, k)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))  # -0.0 included
+    if case == "negative":
+        assert bool(torch.signbit(out).all())
+
+
+def test_block_topk_op_launches_once_for_all_nodes(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 37, 29, generator=g, device=cuda).to(torch.bfloat16)
+    before = ktopk.launches.count
+    out = ops.block_topk(x, 0.25, 128)
+    assert ktopk.launches.count == before + 1
+    assert torch.equal(out, ops.block_topk(x.cpu(), 0.25, 128).to(cuda))
+
+
+def test_reduced_trainer_runs_through_the_block_topk_kernel(cuda):
+    _build.reset_launch_counts()
+    res = train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "2"],
+                     compressor=KernelBlockTopK(0.25, 1024))
+    assert all(np.isfinite(res["losses"])) and res["gamma"] == 0.125
+    assert _build.launch_counts()["block_topk"] > 0

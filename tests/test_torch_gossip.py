@@ -137,8 +137,8 @@ def test_fused_needs_a_kernel_compressor_and_a_circulant_topology():
     with pytest.raises(ValueError, match="fused gossip needs"):
         tsteps.make_trainer(torch_config("qwen3-1.7b").reduced(), 4, compressor="q4b",
                             fused_gossip=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_compressor("btop10")
+    with pytest.raises(ValueError, match="fused gossip needs"):
+        ChocoConsensus(topology.ring(4), make_compressor("btop10"), fused=True)
 
 
 def test_packed_and_fused_rounds_agree_from_one_generator():
