@@ -1,14 +1,21 @@
-"""Flash attention: the ``flash_attn_fwd`` CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Flash attention: the ``flash_attn_fwd`` CUDA kernel's wrapper, its plain
+PyTorch version, and the kernel's tile schedule written out on the host.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.  The
-kernel (``csrc/flash_attn.cu``) also serves ``kernels/sliding_window.py``:
-its kv loop loads only the live key band, which is what the TPU's separate
+kernel (``csrc/flash_attn.cu``, the shared mainloop of
+``csrc/attn_mainloop.cuh``) also serves ``kernels/sliding_window.py``: a
+query tile visits only its live kv tiles, which is what the TPU's separate
 sliding-window kernel was for.  Each wrapper keeps its own launch counter.
 
 Layout: q, k, v are ``[B, S, H, hd]`` with kv heads already repeated to H
-(the model's convention); the kernel reads them through their strides and
-masks ragged lengths itself, so nothing is folded, padded or copied.
+(the model's convention); the kernel reads them through their strides (bf16:
+TMA tensor maps over the same view) and masks ragged lengths itself, so
+nothing is folded, padded or copied.
+
+bf16 runs on the tensor cores and rounds each softmax probability to bf16
+once before the PV product, which the plain version (f32 throughout) does
+not: the two differ by at most ``ref.p_rounding_bound`` per element beyond
+the output's own rounding.  f32 runs on the CUDA cores in f32.
 """
 from __future__ import annotations
 
@@ -24,6 +31,12 @@ launches = _build.LaunchCounter("flash_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+#: keys per kv tile of both kernels (``csrc/attn_mainloop.cuh::TILE_K``)
+TILE_K = 128
+#: how the kernels mask a kv tile (``csrc/attn_mainloop.cuh::MASK_*``): not at
+#: all (every pair live), by the causal / window rule and ``k < Sk``, or by
+#: the block-sparse pattern's own rule (its bitmap)
+MASK_NONE, MASK_ELEM, MASK_BLOCKS = 0, 1, 2
 _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -43,13 +56,50 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
     return out.reshape(B, H, Sq, hd).permute(0, 2, 1, 3)
 
 
+def tile_q(seq_q: int) -> int:
+    """Query rows per kernel tile (``csrc/attn_mainloop.cuh::tile_q_for``):
+    two 64-row consumer warpgroups, or one when ``seq_q <= 64``."""
+    return 64 if seq_q <= 64 else 128
+
+
+def range_schedule(seq_q: int, seq_k: int, *, causal: bool,
+                   window: int | None) -> list[list[tuple[int, int]]]:
+    """The kv tiles each query tile of ``flash_attn_fwd`` visits, with their
+    masks, as ``csrc/attn_mainloop.cuh::RangeSchedule`` computes them
+    in-kernel: per query tile, ``[(kv_tile, MASK_*), ...]`` ascending.
+
+    A query tile covers ``tile_q(seq_q)`` rows, a kv tile ``TILE_K`` keys.  The range runs from the first tile the window
+    reaches to the last the causal limit allows; a tile is ``MASK_NONE`` when
+    every (q, k) pair in it is live (rows past ``seq_q`` do not count, keys
+    past ``seq_k`` are dead), else ``MASK_ELEM``.
+    """
+    bm = tile_q(seq_q)
+    w = window or 0
+    n_kv = -(-seq_k // TILE_K)
+    out = []
+    for qt in range(-(-seq_q // bm)):
+        q0, q_last = qt * bm, min((qt + 1) * bm, seq_q) - 1
+        first = max(q0 - w + 1, 0) // TILE_K if w > 0 else 0
+        end = min(q_last // TILE_K + 1, n_kv) if causal else n_kv
+        tiles = []
+        for kt in range(first, end):
+            k0, k_last = kt * TILE_K, (kt + 1) * TILE_K - 1
+            full = (k_last < seq_k and (not causal or k_last <= q0)
+                    and (w <= 0 or q_last - k0 < w))
+            tiles.append((kt, MASK_NONE if full else MASK_ELEM))
+        out.append(tiles)
+    return out
+
+
 def _rows_aligned(x: torch.Tensor) -> bool:
-    """Head dim contiguous and every [b, s, h] row on a 16-byte boundary."""
+    """Head dim contiguous and every [b, s, h] row on a 16-byte boundary, at
+    a positive stride (what a TMA tensor map takes; a broadcast view is
+    copied)."""
     el = x.element_size()
     return (
         x.stride(3) == 1
         and x.data_ptr() % 16 == 0
-        and all((x.stride(i) * el) % 16 == 0 for i in range(3))
+        and all(x.stride(i) > 0 and (x.stride(i) * el) % 16 == 0 for i in range(3))
     )
 
 

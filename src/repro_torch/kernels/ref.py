@@ -21,6 +21,8 @@ import torch
 
 NEG_INF = -1e30
 BISECT_ITERS = 20
+#: unit roundoff of bf16 (8 significant bits)
+BF16_UNIT_ROUNDOFF = 2.0**-8
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
@@ -42,6 +44,20 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
     s = s.masked_fill(~mask[None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqs,bsk->bqk", p, v.float()).to(q.dtype)
+
+
+def p_rounding_bound(attention, v: torch.Tensor) -> torch.Tensor:
+    """Per-element bound, in f32, on what rounding the softmax probabilities
+    to bf16 before the PV product moves an attention output.
+
+    The bf16 attention kernels round each p_j once (relative error at most
+    u = 2**-8), as the TPU's MXU does to an f32 product at default
+    precision; the plain versions keep P in f32.  The change in output i is
+    then at most u * sum_j p_j |v_j| / l, which is u times the plain
+    attention of |v|: ``attention`` is that plain version with q, k (and
+    pattern) bound, taking v.
+    """
+    return BF16_UNIT_ROUNDOFF * attention(v.abs()).float()
 
 
 def block_sparse_mask(pattern, device) -> torch.Tensor:

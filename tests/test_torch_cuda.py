@@ -12,7 +12,9 @@ Tolerances: f32 with TF32 off ``atol 2e-5, rtol 1e-4`` for kernels (same
 math, other summation order), ``atol 2e-4, rtol 1e-3`` for model logits (as
 the reference's kernel-flag test); bf16 ``atol 1e-4, rtol 1e-2`` (both sides
 reduce in f32 and round once to bf16: at most one rounding step, 2**-7 of
-the value, apart).
+the value, apart), plus, for the flash, sliding-window and block-sparse
+kernels, ``2**-8 * plain(|v|)``: those round P to bf16 once before the PV
+product on the tensor cores (``ref.p_rounding_bound``).
 """
 import dataclasses
 
@@ -33,7 +35,8 @@ from repro_torch.kernels.ops import KernelBlockTopK, KernelQuantization
 from repro_torch.kernels import decode as kd
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import sliding_window as ksw
-from repro_torch.kernels.ref import encode_scale, f32_full, quantize_kv_ref, tau_for
+from repro_torch.kernels.ref import (encode_scale, f32_full, p_rounding_bound, quantize_kv_ref,
+                                     tau_for)
 from repro_torch.launch import train
 from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServeEngine
@@ -58,9 +61,26 @@ def _randn(gen, *shape, dtype, device):
     return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
 
+def _assert_attention_close(out, ref, attend, v):
+    """A flash / sliding-window / block-sparse kernel's output against its
+    plain version: F32 for f32; for bf16, BF16 plus the bound on rounding P
+    to bf16 (``attend``: the plain version with q, k bound, taking v)."""
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, **F32)
+        return
+    out, ref = out.float(), ref.float()
+    limit = BF16["atol"] + BF16["rtol"] * ref.abs() + p_rounding_bound(attend, v)
+    err = (out - ref).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((err <= limit).all()), (
+        f"{int((err > limit).sum())} elements out of bound; max err / limit "
+        f"{float((err / limit).max()):.3f}, max err {float(err.max()):.3e}")
+
+
 @pytest.mark.parametrize("dtype,S,window,hd", [
     (torch.float32, 200, None, 128), (torch.bfloat16, 512, None, 128),
     (torch.bfloat16, 300, 100, 128), (torch.float32, 77, 13, 64),
+    (torch.bfloat16, 77, 13, 64), (torch.bfloat16, 40, None, 128), (torch.bfloat16, 1, None, 64),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, S, window, hd):
     g = torch.Generator(device=cuda).manual_seed(S)
@@ -69,39 +89,47 @@ def test_flash_kernel_matches_plain(cuda, dtype, S, window, hd):
     out = kf.flash_attention(q, k, v, causal=True, window=window)
     assert kf.launches.count == before + 1
     ref = kf.flash_attention_plain(q, k, v, causal=True, window=window)
-    torch.testing.assert_close(out.float(), ref.float(),
-                               **(F32 if dtype == torch.float32 else BF16))
+    _assert_attention_close(
+        out, ref, lambda v_: kf.flash_attention_plain(q, k, v_, causal=True, window=window), v)
 
 
-@pytest.mark.parametrize("Sq,Sk", [(96, 96), (40, 100)])
-def test_flash_kernel_non_causal(cuda, Sq, Sk):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", [(96, 96), (40, 100), (200, 300)])
+def test_flash_kernel_non_causal(cuda, Sq, Sk, dtype):
     g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
-    q = _randn(g, 2, Sq, 4, 64, dtype=torch.float32, device=cuda)
-    k, v = (_randn(g, 2, Sk, 4, 64, dtype=torch.float32, device=cuda) for _ in range(2))
+    q = _randn(g, 2, Sq, 4, 64, dtype=dtype, device=cuda)
+    k, v = (_randn(g, 2, Sk, 4, 64, dtype=dtype, device=cuda) for _ in range(2))
     out = kf.flash_attention(q, k, v, causal=False)
-    torch.testing.assert_close(out, kf.flash_attention_plain(q, k, v, causal=False), **F32)
+    _assert_attention_close(out, kf.flash_attention_plain(q, k, v, causal=False),
+                            lambda v_: kf.flash_attention_plain(q, k, v_, causal=False), v)
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
     """q/k/v as head slices of one fused [B, S, 3H, hd] tensor (non-contiguous
-    rows) give the same result as contiguous copies."""
+    rows; bf16: TMA maps over the strided view) give the same result as
+    contiguous copies."""
     g = torch.Generator(device=cuda).manual_seed(9)
-    qkv = _randn(g, 2, 150, 12, 64, dtype=torch.float32, device=cuda)
+    qkv = _randn(g, 2, 150, 12, 64, dtype=dtype, device=cuda)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
     out = kf.flash_attention(q, k, v, causal=True)
     ref = kf.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("S,window", [(640, 256), (333, 50)])
-def test_sliding_window_kernel_matches_plain(cuda, S, window):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(640, 256), (333, 50), (1100, 300)])
+def test_sliding_window_kernel_matches_plain(cuda, S, window, dtype):
+    """The band: its two edges masked, interior kv tiles not, a ragged tail;
+    bf16 runs the tensor-core body."""
     g = torch.Generator(device=cuda).manual_seed(window)
-    q, k, v = (_randn(g, 1, S, 4, 128, dtype=torch.float32, device=cuda) for _ in range(3))
+    q, k, v = (_randn(g, 1, S, 4, 128, dtype=dtype, device=cuda) for _ in range(3))
     before = ksw.launches.count
     out = ksw.sliding_window_attention(q, k, v, window=window)
     assert ksw.launches.count == before + 1
-    torch.testing.assert_close(out, ksw.sliding_window_attention_plain(q, k, v, window=window),
-                               **F32)
+    _assert_attention_close(
+        out, ksw.sliding_window_attention_plain(q, k, v, window=window),
+        lambda v_: ksw.sliding_window_attention_plain(q, k, v_, window=window), v)
 
 
 def _decode_inputs(device, B=3, L=200, KV=2, G=4, hd=128):
@@ -163,23 +191,26 @@ def test_block_sparse_kernel_matches_plain(cuda, layout, block, dtype):
     out = kbs.block_sparse_attention(q, k, v, pattern)
     assert kbs.launches.count == before + 1
     ref = kbs.block_sparse_attention_plain(q, k, v, pattern)
-    torch.testing.assert_close(out.float(), ref.float(),
-                               **(F32 if dtype == torch.float32 else BF16))
+    _assert_attention_close(
+        out, ref, lambda v_: kbs.block_sparse_attention_plain(q, k, v_, pattern), v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block_q,block_k,hd", [(8, 8, 64), (32, 8, 128), (8, 32, 64),
                                                 (128, 32, 128), (24, 40, 64)])
-def test_block_sparse_kernel_uneven_blocks(cuda, block_q, block_k, hd):
+def test_block_sparse_kernel_uneven_blocks(cuda, block_q, block_k, hd, dtype):
     """block_q != block_k, blocks of 8, a head dim of 64, and blocks that are
-    no power of two (24 rows: blocks of 8 query rows; 40 keys: a 32-key
-    sub-tile and an 8-key one)."""
+    no power of two (24 rows, 40 keys: blocks straddling the kernel's 128-row
+    and 128-key tiles)."""
     S = 240 if block_q == 24 else 256
     g = torch.Generator(device=cuda).manual_seed(block_q + block_k)
-    q, k, v = (_randn(g, 1, S, 3, hd, dtype=torch.float32, device=cuda) for _ in range(3))
+    q, k, v = (_randn(g, 1, S, 3, hd, dtype=dtype, device=cuda) for _ in range(3))
     for layout in ("causal", "windowed", "strided"):
         pattern = _pattern(layout, S, block_q, block_k)
-        torch.testing.assert_close(kbs.block_sparse_attention(q, k, v, pattern),
-                                   kbs.block_sparse_attention_plain(q, k, v, pattern), **F32)
+        _assert_attention_close(
+            kbs.block_sparse_attention(q, k, v, pattern),
+            kbs.block_sparse_attention_plain(q, k, v, pattern),
+            lambda v_: kbs.block_sparse_attention_plain(q, k, v_, pattern), v)
 
 
 def test_block_sparse_kernel_reads_strided_views(cuda):
@@ -190,8 +221,10 @@ def test_block_sparse_kernel_reads_strided_views(cuda):
     k = kv[:, :, :, None].expand(2, 256, 4, 2, 128).reshape(2, 256, 8, 128)
     v = torch.flip(k, dims=[2])
     pattern = _pattern("windowed", 256, 64)
-    torch.testing.assert_close(kbs.block_sparse_attention(q, k, v, pattern).float(),
-                               kbs.block_sparse_attention_plain(q, k, v, pattern).float(), **BF16)
+    _assert_attention_close(
+        kbs.block_sparse_attention(q, k, v, pattern),
+        kbs.block_sparse_attention_plain(q, k, v, pattern),
+        lambda v_: kbs.block_sparse_attention_plain(q, k, v_, pattern), v)
 
 
 def _reduced(**kw):
