@@ -357,8 +357,18 @@ def check_kernels(dev) -> dict:
                       a[2].transpose(1, 2).contiguous(), a[3][:, None, None, :]) for a in sets]
             lib_ms = time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
                 q_, k_, v_, attn_mask=m_, enable_gqa=True), tsets, 50)
-            del tsets
         b_ms, b_by = bound(4 * n_valid * KV * G * hd, nbytes, dt)
+        dev_ms = device_ms(run_kernel, sets, 50)
+        lib_dev = None if quant else device_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_, enable_gqa=True), tsets, 50)
+        lib_txt = ("none" if quant else f"per call {lib_ms:.4f} ms, device {lib_dev:.4f} ms "
+                   f"({b_ms / lib_dev:.1%} of the bound)")
+        log(f"  rate {name}: per call {ms:.4f} ms ({b_ms / ms:.1%} of the bound), device "
+            f"{dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound); library "
+            f"(SDPA) {lib_txt}; the unsplit design's {UNSPLIT_DECODE_MS[name]:.4f} ms is "
+            f"{UNSPLIT_DECODE_MS[name] / ms:.1f}x the per-call time")
+        if not quant:
+            del tsets
         records[name] = dict(
             name=name, route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
             replaces="src/repro/kernels/decode.py:125", max_abs_err=err, ms=ms,
@@ -366,6 +376,8 @@ def check_kernels(dev) -> dict:
             shape=f"B={B} L={L} KV={KV} G={G} hd={hd} {'int8 KV' if quant else dt}, "
                   f"{n_valid} valid rows")
         del sets
+    decode_edge_cases(dev, gen, failures)
+    decode_workspace_cost(dev)
     torch.cuda.synchronize()
     for r in records.values():
         log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
@@ -375,6 +387,76 @@ def check_kernels(dev) -> dict:
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return records
+
+
+# kernel ms per call of the decode rows before split-L (one block per (kv head,
+# batch row) walking all L; NVIDIA H100 80GB HBM3, 700 W), printed beside today's
+UNSPLIT_DECODE_MS = {"decode_attention": 0.1735, "decode_attention_int8": 0.1972}
+
+
+def decode_edge_cases(dev, gen, failures: list) -> None:
+    """The split decode kernel against its plain version where its plan has
+    edges: a batch row with no live position (the uniform mean of V), L below
+    one 64-row tile, L not a multiple of it, G = 1 and G = 8; each for bf16,
+    f32 and int8 KV."""
+    import torch
+
+    from repro_torch.kernels import decode as kd
+    from repro_torch.kernels.ref import quantize_kv_ref
+
+    cases = {"all-masked row": (3, 200, 2, 2, 128), "L=37": (3, 37, 2, 2, 64),
+             "L=1000": (3, 1000, 8, 2, 128), "G=1": (3, 300, 4, 1, 128),
+             "G=8": (3, 500, 2, 8, 64)}
+    for case, (B, L, KV, G, hd) in cases.items():
+        pos = torch.tensor([17, 3 * L + 5, L // 2], device=dev)  # linear, wrapped ring, linear
+        slot = torch.remainder(pos, L)
+        age = torch.remainder(slot[:, None] - torch.arange(L, device=dev)[None], L)
+        valid = age < torch.clamp(pos + 1, max=L)[:, None]
+        if case == "all-masked row":
+            valid[1] = False
+        for dt in ("bfloat16", "float32", "int8"):
+            ftype = torch.float32 if dt == "int8" else getattr(torch, dt)
+            q, k, v = (torch.randn(*s, generator=gen, device=dev).to(ftype)
+                       for s in ((B, KV, G, hd), (B, L, KV, hd), (B, L, KV, hd)))
+            kw = {}
+            if dt == "int8":
+                (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+                kw = dict(k_scale=ks, v_scale=vs)
+            out = kd.decode_attention(q, k, v, valid, **kw)
+            torch.cuda.synchronize()
+            within_tol(f"decode split {case} B{B} L{L} KV{KV} G{G} hd{hd} {dt} "
+                       f"(chunks of {kd.split_plan(B, KV, L)[0]})", out,
+                       kd.decode_attention_plain(q, k, v, valid, **kw),
+                       "float32" if ftype == torch.float32 else dt, failures)
+
+
+def decode_workspace_cost(dev) -> None:
+    """Host microseconds per call of the two ways to get the decode kernel's
+    scratch (partials and zeroed completion counts): fresh tensors from the
+    caching allocator (``torch.empty`` and ``torch.zeros``, which launches a
+    fill) against the wrapper's per-(device, stream) pair."""
+    import torch
+
+    from repro_torch.kernels import decode as kd
+
+    n, rows = 4 * 8 * 16 * 2 * (128 + 2), 4 * 8  # B4 KV8, 16 chunks, G2, hd 128
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    reps = 20000
+    cost = {}
+    for label, fn in (("torch.empty + torch.zeros",
+                       lambda: (torch.empty(n, dtype=torch.float32, device=dev),
+                                torch.zeros(rows, dtype=torch.int32, device=dev))),
+                      ("cached pair", lambda: kd._workspace(dev, stream, n, rows))):
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+        cost[label] = best
+    torch.cuda.synchronize()
+    log("  decode scratch, host us per call (best of 3 x 20000): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cost.items()))
 
 
 def check_block_sparse(dev) -> dict:
@@ -725,6 +807,9 @@ def profile_decode(dev) -> None:
         f"clock ({wall / steps * 1e3:.2f} under the profiler); device busy "
         f"{busy_ms / steps:.2f} ms/tick, {busy_ms / (wall * 1e3):.1%} of the profiled wall"
         if rows else "[7] device time: not measured (the profiler returned no device events)")
+    dec = [r for r in rows if "decode_split_kernel" in r[1]]
+    log(f"[7] decode_attn kernel: {sum(r[0] for r in dec) / 1e3 / steps:.3f} ms/tick, "
+        f"{sum(r[2] for r in dec) / steps:g} launches/tick")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[7]   {dev_us / 1e3 / steps:8.3f} ms/tick {dev_us / 1e3 / busy_ms:6.1%} "
             f"x{count / steps:<5g} {key[:90]}")
@@ -942,6 +1027,32 @@ def check_block_topk(dev) -> dict:
             log(f"  block_topk k={K}: kept per row min {int(kept.min())} max {int(kept.max())} "
                 f"(row 1 ties {int((x[1].abs() == 0.1).sum())} at its max); dropped negatives "
                 f"signed -0.0: {bool(torch.signbit(out[2]).all())}")
+    # the persistent walk's edges: rows not a multiple of a CTA's 4, a row
+    # count below one wave, block 300 (75 16-byte chunks), block 75 (4-byte
+    # copies), block 2048 and a view 4 bytes off a 16-byte boundary
+    # and rows that leave the banded rounds: magnitudes past 1e38, a band of
+    # ties too wide for the per-lane lists; and subnormal rows
+    for rows, blk, kk in ((R - 3, BLK, K), (4097, BLK, K), (131, BLK, 7), (50001, 300, 75),
+                          (20011, 75, 9), (8191, 2048, 512), ("view", BLK, K), ("huge", BLK, K),
+                          ("ties", BLK, 300), ("subnormal", BLK, K)):
+        if rows == "view":
+            y = torch.randn(257 * blk + 1, generator=gen, device=dev)[1:].view(257, blk)
+        elif rows == "huge":
+            y = torch.randn(513, blk, generator=gen, device=dev)
+            y[:, :3] = 3e38
+        elif rows == "ties":  # 1..16 in steps of 1/8: hundreds of ties in the band
+            y = torch.randint(8, 129, (1027, blk), generator=gen, device=dev).float() / 8
+        elif rows == "subnormal":
+            y = torch.randn(1029, blk, generator=gen, device=dev) * 1e-39
+        else:
+            y = torch.randn(rows, blk, generator=gen, device=dev) * 0.02
+            y[rows // 2] = 0.0
+            y[-1, ::3] = 0.01
+        tag = f" ({rows})" if isinstance(rows, str) else ""
+        _exact(f"block_topk [{y.shape[0]},{blk}] f32 k={kk}{tag}",
+               ktopk.block_topk(y, kk).view(torch.int32),
+               ktopk.block_topk_plain(y, kk).view(torch.int32), failures)
+        del y
     sets = [(x,)] + [make() for _ in range(1)]
     ms = time_ms(lambda a: ktopk.block_topk(a, K), sets, 20)
     plain_ms = time_ms(lambda a: ktopk.block_topk_plain(a, K), sets, 3)
@@ -953,9 +1064,13 @@ def check_block_topk(dev) -> dict:
                replaces="src/repro/kernels/topk.py:53", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                shape=f"[{R},{BLK}] f32, k={K}")
+    sink = torch.empty_like(x)  # the same bytes moved by a plain device copy, as a yardstick
+    copy_ms = time_ms(lambda a: sink.copy_(a), sets, 20)
     log(f"  time block_topk [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library (torch.topk of |x|, selection only) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}), {b_ms / ms:.1%} of the bound")
+        f"({b_by}), {b_ms / ms:.1%} of the bound; a copy of the same bytes {copy_ms:.4f} ms "
+        f"({b_ms / copy_ms:.1%} of the bound), the kernel at {copy_ms / ms:.1%} of copy speed")
+    del sink
     del sets, x
     torch.cuda.empty_cache()
     if failures:

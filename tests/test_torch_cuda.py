@@ -156,6 +156,50 @@ def test_decode_kernel_matches_plain(cuda, quantized, hd):
     torch.testing.assert_close(out, kd.decode_attention_plain(q, k, v, valid, **kw), **F32)
 
 
+def _decode_case(case, dtype, device):
+    """(q, k, v, valid, kwargs) of one split-decode edge case: an all-masked
+    row, L below one 64-row tile, L not a multiple of it, G = 1 and G = 8."""
+    B, L, KV, G, hd = {"all_masked": (3, 200, 2, 2, 128), "L37": (3, 37, 2, 2, 64),
+                       "L1000": (3, 1000, 8, 2, 128), "G1": (3, 300, 4, 1, 128),
+                       "G8": (3, 500, 2, 8, 64)}[case]
+    q, k, v, valid = _decode_inputs(device, B=B, L=L, KV=KV, G=G, hd=hd)
+    if case == "all_masked":
+        valid[1] = False
+    kw = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    elif dtype == "bfloat16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    return q, k, v, valid, kw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", ["all_masked", "L37", "L1000", "G1", "G8"])
+def test_decode_split_kernel_edge_cases(cuda, case, dtype):
+    q, k, v, valid, kw = _decode_case(case, dtype, cuda)
+    counter = kd.launches_int8 if kw else kd.launches
+    before = counter.count
+    out = kd.decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1  # one count per call: split and combine together
+    ref = kd.decode_attention_plain(q, k, v, valid, **kw)
+    tol = BF16 if dtype == "bfloat16" else F32
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    if case == "all_masked":  # the uniform mean of V over all L
+        vf = v.float() * (kw["v_scale"][..., None] if kw else 1.0)
+        mean = vf[1].mean(0)[:, None, :].expand_as(out[1])
+        torch.testing.assert_close(out[1].float(), mean.to(out.dtype).float(), **tol)
+
+
+def test_decode_split_kernel_matches_its_cpu_twin(cuda):
+    q, k, v, valid, _ = _decode_case("L1000", "float32", cuda)
+    valid[0, 100:700] = False  # whole dead tiles in a live row
+    out = kd.decode_attention(q, k, v, valid)
+    twin = kd.decode_attention_split(*(t.cpu() for t in (q, k, v, valid)))
+    torch.testing.assert_close(out.cpu(), twin, **F32)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 96, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -414,6 +458,49 @@ def test_block_topk_kernel_matches_plain_bit_for_bit(cuda, case):
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))  # -0.0 included
     if case == "negative":
         assert bool(torch.signbit(out).all())
+
+
+@pytest.mark.parametrize("rows,block,k", [
+    (4097, 1024, 256),   # rows not a multiple of the CTA's 4 warps
+    (30001, 1024, 256),  # more rows than resident warps: each warp walks several
+    (20003, 300, 75),    # 75 16-byte chunks per row: lanes past the row idle
+    (5001, 75, 7),       # 4-byte elements: block % 4 != 0
+    (12345, 2048, 1),
+    (7, 1, 1),
+])
+def test_block_topk_kernel_persistent_walks(cuda, rows, block, k):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(rows, block, generator=g, device=cuda) * 0.02
+    x[rows // 2] = 0.0
+    x[-1, ::3] = 0.01  # ties at the max
+    out = ktopk.block_topk(x, k)
+    want = ktopk.block_topk_plain(x, k)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_block_topk_kernel_reads_an_unaligned_view(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    base = torch.randn(257 * 1024 + 1, generator=g, device=cuda)
+    x = base[1:].view(257, 1024)  # 4 bytes past a 16-byte boundary: the 4-byte path
+    out = ktopk.block_topk(x, 100)
+    assert torch.equal(out.view(torch.int32), ktopk.block_topk_plain(x, 100).view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["huge", "ties", "subnormal"])
+def test_block_topk_kernel_off_the_banded_rounds(cuda, case):
+    """Rows the banded rounds do not take (magnitudes past 1e38; a band of
+    ties wider than the per-lane lists) and subnormal rows."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    if case == "huge":
+        x = torch.randn(300, 1024, generator=g, device=cuda)
+        x[:, :3] = 3e38
+    elif case == "ties":
+        x = torch.randint(8, 129, (300, 1024), generator=g, device=cuda).float() / 8
+    else:
+        x = torch.randn(300, 1024, generator=g, device=cuda) * 1e-39
+    for k in (1, 256, 300):
+        out = ktopk.block_topk(x, k)
+        assert torch.equal(out.view(torch.int32), ktopk.block_topk_plain(x, k).view(torch.int32))
 
 
 def test_block_topk_op_launches_once_for_all_nodes(cuda):
