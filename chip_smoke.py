@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
     python3 chip_smoke.py --phases 1,2,8,9   # kernels, one round, the trainer
+    python3 chip_smoke.py --phases 11,12     # the serving fleet, train and serve
 
 Phases (any failure exits non-zero):
   1. card, versions, and an nvcc build of every kernel from ``csrc/``, with
@@ -34,11 +35,22 @@ Phases (any failure exits non-zero):
  10. the quickstart experiment (10 nodes, AD-GDA against CHOCO-SGD, 600
      rounds) with ``kq4b`` fused gossip and with ``top10``: AD-GDA's worst
      accuracy must not fall below CHOCO-SGD's, and under ``top10`` (which
-     draws no noise) both must equal the reference's within 0.01.
-Phases 4-6 and 9 are the main paths: launch counters are zeroed just before
-each run and read just after, and every kernel the run goes through must
-have launched.  The line before the last is the kernels' JSON summary; the
-last line is the run's JSON status.
+     draws no noise) both must equal the reference's within 0.01;
+ 11. ``launch/serve.py --fleet 2`` at full width (4 slots per node, a zipf
+     pool of 64 prompts of 4-512 tokens, 1-32 new tokens, 96 requests) with
+     flash, int8-KV decode and block-sparse attention, the --no-fastpath
+     twin (its tick fields must equal the fast run's), an overload run
+     (admission control must reject), and a hot reload mid-run through the
+     fleet's API (a saved step is served, a torn newer file skipped);
+ 12. train and serve: AD-GDA and its unweighted twin on 10 nodes with
+     ``kq4b`` fused gossip, the consensus checkpointed each phase and served
+     by classifier engines that hot-reload it; AD-GDA's worst-node accuracy
+     must be above the twin's.
+Phases 4-6, 9, 11 and 12 are the main paths: launch counters are zeroed just
+before each run and read just after, and every kernel the run goes through
+must have launched (in phase 11, once per layer and model forward).  The
+line before the last is the kernels' JSON summary; the last line is the
+run's JSON status.
 """
 from __future__ import annotations
 
@@ -114,13 +126,20 @@ def device_ms(fn, arg_sets, reps: int) -> float:
     for a in arg_sets[:2]:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / reps / 1e3
+    # the profiler now and then hands back a trace without device events:
+    # trace again, and fail if it never records any
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == cuda)
+        if total > 0:
+            return total / reps / 1e3
+        log("  device_ms: the profiler recorded no device time; tracing again")
+    raise AssertionError("device_ms: the profiler recorded no device time in three traces")
 
 
 def copies_past_l2(make, nbytes: int):
@@ -871,23 +890,25 @@ def check_gossip_kernels(dev) -> dict:
             continue
         make = lambda: (randn(R, L), rand(R, L), norm)
         sets = copies_past_l2(make, n * 8)
-        ms = time_ms(lambda a, b_, c: kq.quantize(a, b_, c, 4), sets, 20)
+        qfn = lambda a, b_, c: kq.quantize(a, b_, c, 4)
+        ms = time_ms(qfn, sets, 20)
         plain_ms = time_ms(lambda a, b_, c: kq.quantize_plain(a, b_, c, 4), sets, 5)
         b_ms, b_by = bound(6 * n, n * (8 + 5 / 8), "float32")
         records["quantize"] = dict(
             name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:80", max_abs_err=0.0, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"[{R},{L}] f32, 4 bits")
+            device_ms=device_ms(qfn, sets, 20), shape=f"[{R},{L}] f32, 4 bits")
         dsets = [kq.quantize(*a, 4) + (scale,) for a in sets]
-        ms = time_ms(lambda a, b_, c: kq.dequantize(a, b_, c, 4), dsets, 20)
+        dfn = lambda a, b_, c: kq.dequantize(a, b_, c, 4)
+        ms = time_ms(dfn, dsets, 20)
         plain_ms = time_ms(lambda a, b_, c: kq.dequantize_plain(a, b_, c, 4), dsets, 5)
         b_ms, b_by = bound(2 * n, n * (5 / 8 + 4), "float32")
         records["dequantize"] = dict(
             name="dequantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:110", max_abs_err=dq_err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"[{R},{L}] u8 payload -> f32, 4 bits")
+            device_ms=device_ms(dfn, dsets, 20), shape=f"[{R},{L}] u8 payload -> f32, 4 bits")
         del sets, dsets
 
     # -- fused encode: [m, R, 128] bf16, with and without the digest
@@ -928,14 +949,15 @@ def check_gossip_kernels(dev) -> dict:
                kq.dequantize(ql, qs, sc32[i, 1], 4), h32[i] - zeros[i], failures)
     del tn32, zeros, l32, s32, h32, resid
     sets = copies_past_l2(enc_inputs, m * n * 8)
-    ms = time_ms(lambda a, b_, c, d: kc.fused_encode(a, b_, c, d, 4), sets, 10)
+    efn = lambda a, b_, c, d: kc.fused_encode(a, b_, c, d, 4)
+    ms = time_ms(efn, sets, 10)
     plain_ms = time_ms(lambda a, b_, c, d: kc.fused_encode_plain(a, b_, c, d, 4), sets, 3)
     b_ms, b_by = bound(8 * m * n, m * n * (2 + 2 + 4 + 2 + 5 / 8), "float32")
     records["fused_encode"] = dict(
         name="fused_encode", route="cuda", source="src/repro_torch/csrc/choco_fused.cu",
         replaces="src/repro/kernels/choco_fused.py:165", max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"[{m},{R},{L}] bf16, 4 bits")
+        device_ms=device_ms(efn, sets, 10), shape=f"[{m},{R},{L}] bf16, 4 bits")
     del sets, args
 
     # -- fused mix: K = 3 ring shifts (the round's launch reads the unrolled
@@ -968,7 +990,8 @@ def check_gossip_kernels(dev) -> dict:
            kc.fused_mix_plain(rl8, rs8, s8, ws8, 4), failures)
     del rl8, rs8, lvl8, sign8, s8, ws8
     sets = copies_past_l2(lambda: mix_inputs(3), m * n * 8)
-    ms = time_ms(lambda a, b_, c, d: kc.fused_mix_shifted(a, b_, c, d, ring, 4), sets, 10)
+    mfn = lambda a, b_, c, d: kc.fused_mix_shifted(a, b_, c, d, ring, 4)
+    ms = time_ms(mfn, sets, 10)
 
     def plain_mix(a, b_, c, d):
         rl_ = torch.stack([torch.roll(a, sh, 0) for sh in ring])
@@ -981,13 +1004,14 @@ def check_gossip_kernels(dev) -> dict:
         name="fused_mix", route="cuda", source="src/repro_torch/csrc/choco_fused.cu",
         replaces="src/repro/kernels/choco_fused.py:228", max_abs_err=mix_err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"[{m},{R},{L}] f32 s, K=3 ring shifts, 4 bits")
+        device_ms=device_ms(mfn, sets, 10), shape=f"[{m},{R},{L}] f32 s, K=3 ring shifts, 4 bits")
     del sets
     torch.cuda.synchronize()
     for r in records.values():
-        log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of the bound")
+        log(f"  time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms per call "
+            f"({r['bound_ms'] / r['ms']:.1%} of the bound), device {r['device_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['device_ms']:.1%} of the bound), plain {r['plain_ms']:.4f} ms, "
+            f"library none, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"gossip kernels disagree with their plain versions: {failures}")
@@ -1055,6 +1079,7 @@ def check_block_topk(dev) -> dict:
         del y
     sets = [(x,)] + [make() for _ in range(1)]
     ms = time_ms(lambda a: ktopk.block_topk(a, K), sets, 20)
+    dev_ms = device_ms(lambda a: ktopk.block_topk(a, K), sets, 20)
     plain_ms = time_ms(lambda a: ktopk.block_topk_plain(a, K), sets, 3)
     lib_ms = time_ms(lambda a: torch.topk(a.abs(), K, dim=1), sets, 10)
     n = R * BLK
@@ -1063,10 +1088,11 @@ def check_block_topk(dev) -> dict:
     rec = dict(name="block_topk", route="cuda", source="src/repro_torch/csrc/block_topk.cu",
                replaces="src/repro/kernels/topk.py:53", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-               shape=f"[{R},{BLK}] f32, k={K}")
+               device_ms=dev_ms, shape=f"[{R},{BLK}] f32, k={K}")
     sink = torch.empty_like(x)  # the same bytes moved by a plain device copy, as a yardstick
     copy_ms = time_ms(lambda a: sink.copy_(a), sets, 20)
-    log(f"  time block_topk [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  time block_topk [{rec['shape']}]: kernel {ms:.4f} ms per call, device {dev_ms:.4f} "
+        f"ms ({b_ms / dev_ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
         f"library (torch.topk of |x|, selection only) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}), {b_ms / ms:.1%} of the bound; a copy of the same bytes {copy_ms:.4f} ms "
         f"({b_ms / copy_ms:.1%} of the bound), the kernel at {copy_ms / ms:.1%} of copy speed")
@@ -1309,10 +1335,272 @@ def quickstart(dev) -> None:
                 raise AssertionError("top10 quickstart departs from the reference's accuracies")
 
 
+# ----------------------------------------------------------------- phase 11
+FLEET_NODES, FLEET_SLOTS, FLEET_REQUESTS = 2, 4, 96
+# serve.py --fleet at full width: a pool of 64 zipf-popular prompts of 4-512
+# tokens, 1-32 new tokens, a 1024-token cache (below the 8192 window, so the
+# prefix cache stays on)
+FLEET_ARGS = ["--arch", QWEN, "--fleet", str(FLEET_NODES), "--slots", str(FLEET_SLOTS),
+              "--prompts", "zipf", "--prompt-pool", "64", "--prompt-len", "512", "--gen", "32",
+              "--cache-len", "1024", "--requests", str(FLEET_REQUESTS)]
+# the fields that count ticks, requests and cache lookups: the --no-fastpath
+# twin must give the same values (the load generator draws no EOS)
+TICK_FIELDS = ("completed", "rejected", "shed", "p50_ttft_ticks", "p95_ttft_ticks",
+               "p99_ttft_ticks", "mean_queue_depth", "max_queue_depth", "slot_occupancy")
+ATTENTION_KERNELS = ("flash_attention", "sliding_window_attention", "block_sparse_attention",
+                     "decode_attention", "decode_attention_int8")
+
+
+def fleet_rate(util: float) -> float:
+    """Offered requests per tick per node at ``util`` of a node's capacity
+    (slots / mean_request_tokens, as ``benchmarks/bench_serving.py``)."""
+    from repro_torch.serving import LoadGenConfig
+
+    lg = LoadGenConfig(num_nodes=FLEET_NODES, rate=1.0, vocab_size=151936, prompt_min=4,
+                       prompt_max=512, output_min=1, output_max=32)
+    return round(util * FLEET_SLOTS / lg.mean_request_tokens(), 4)
+
+
+def launches_per_forward(phase, label, counts, prefill_kernel, decode_kernel, prefills, decodes,
+                         layers) -> None:
+    """Every prefill forward launched ``prefill_kernel`` once per layer, every
+    decode forward ``decode_kernel``, and no other attention kernel ran."""
+    want = {k: 0 for k in ATTENTION_KERNELS}
+    want[prefill_kernel] = layers * prefills
+    want[decode_kernel] = layers * decodes
+    got = {k: counts[k] for k in ATTENTION_KERNELS}
+    log(f"[{phase}] {label}: launches {got}; {layers} layers x ({prefills} prefill, {decodes} "
+        f"decode forwards) {'equal' if got == want else 'DIFFERENT'}")
+    if got != want or not prefills or not decodes:
+        raise AssertionError(f"phase {phase} {label}: launches {got} != {want}")
+
+
+def served_vs_plain(label, served, cfg, params, dev) -> None:
+    """Eight of a fleet run's finished requests, spread over prompt lengths,
+    against the plain path (``attn_kernel=None``): one plain prefill over
+    prompt + output[:-1] gives the plain argmax at every generated position.
+    Phase 4's rule holds the first tokens (>= 6 of 8 equal); the later tokens,
+    which the decode kernel gave at the fleet's gathered batch shapes, must
+    equal the plain argmax on their own prefix at >= 3/4 of the positions."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    plain = dataclasses.replace(cfg, attn_kernel=None)
+    pool = sorted({tuple(r["prompt"]): r for r in served}.values(),
+                  key=lambda r: (len(r["prompt"]), len(r["output"])))
+    sample = [pool[round(i * (len(pool) - 1) / 7)] for i in range(8)] if len(pool) >= 8 else pool
+    firsts = later = later_same = 0
+    with torch.no_grad():
+        for r in sample:
+            seq = r["prompt"] + r["output"][:-1]
+            logits, _ = T.prefill(params, {"tokens": torch.tensor([seq], device=dev)}, plain,
+                                  cache_len=len(seq))
+            want = torch.argmax(logits[0, len(r["prompt"]) - 1:], dim=-1).tolist()
+            firsts += want[0] == r["output"][0]
+            later += len(want) - 1
+            later_same += sum(a == b for a, b in zip(want[1:], r["output"][1:]))
+            del logits
+    share = later_same / later if later else 1.0
+    log(f"[11] {label}: served tokens against the plain path on {len(sample)} requests "
+        f"(prompts {[len(r['prompt']) for r in sample]}): first tokens equal {firsts}/"
+        f"{len(sample)} (bound >= 6/8), later tokens equal to the plain argmax {later_same}/"
+        f"{later} = {share:.3f} (bound >= 0.75)")
+    if len(sample) < 8 or firsts < 6 or share < 0.75:
+        raise AssertionError(f"phase 11 {label}: served tokens disagree with the plain path")
+
+
+def fleet_full_width(dev) -> dict[str, int]:
+    """Phase 11: ``launch/serve.py --fleet`` at full width with flash, int8
+    decode and block-sparse attention, the --no-fastpath twin, an overload
+    run, and a hot reload mid-run through the fleet's API.  Returns the
+    kernels' launch counts summed over the runs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import save, step_path
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (AdmissionControl, FleetNode, HotReloader, LoadGenConfig,
+                                     LoadGenerator, ServeEngine, ServingFleet)
+
+    layers = get_config(QWEN).num_layers
+    card = gpu_name_and_limit()
+    total = {name: 0 for name in _build.COUNTERS}
+    rate, over = fleet_rate(0.8), fleet_rate(1.4)
+    flash = {"attn_kernel": "flash"}
+    runs = [("flash", flash, rate, [], "flash_attention", "decode_attention"),
+            ("flash, int8 KV", {**flash, "quantized_kv": True}, rate, [], "flash_attention",
+             "decode_attention_int8"),
+            ("block_sparse", {"attn_kernel": "block_sparse"}, rate, [], "block_sparse_attention",
+             "decode_attention"),
+            ("flash --no-fastpath", flash, rate, ["--no-fastpath"], "flash_attention",
+             "decode_attention"),
+            ("flash, utilization 1.4", flash, over, [], "flash_attention", "decode_attention")]
+    # serve.py's weights (its --seed 0 generator): the plain path's reference
+    base = get_config(QWEN)
+    plain_params = T.init_model(base, generator=torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+    checked = ("flash", "flash, int8 KV", "block_sparse")
+    out = {}
+    for label, overrides, r, extra, pk, dk in runs:
+        argv = FLEET_ARGS + ["--rate", str(r)] + extra
+        log(f"[11] launch/serve.py {' '.join(argv)} (config {overrides})")
+        _build.reset_launch_counts()
+        res = serve.main(argv, config_overrides=overrides)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        f = res["metrics"]
+        log(f"[11] {label} ({card}): {f['tok_per_s']:.1f} tokens/s, {f['per_token_ms']:.2f} "
+            f"ms/token, TTFT p50/p99 {f['p50_ttft_ms']:.1f}/{f['p99_ttft_ms']:.1f} ms "
+            f"({f['p50_ttft_ticks']:.0f}/{f['p99_ttft_ticks']:.0f} ticks), queue depth mean/max "
+            f"{f['mean_queue_depth']:.2f}/{f['max_queue_depth']:.0f}, slot occupancy "
+            f"{f['slot_occupancy']:.3f}, cache hit rate {f['cache_hit_rate']:.3f}; "
+            f"{res['offered']} offered, {f['completed']} completed, {f['rejected']} rejected, "
+            f"{f['shed']} shed in {res['ticks']} ticks, {res['wall_seconds']:.1f} s")
+        launches_per_forward(11, label, counts, pk, dk, res["prefill_forwards"],
+                             res["decode_forwards"], layers)
+        if f["completed"] + f["rejected"] + f["shed"] != res["offered"] or not f["completed"]:
+            raise AssertionError(f"phase 11 {label}: requests lost or none completed")
+        if label in checked:
+            served_vs_plain(label, res["served"], dataclasses.replace(base, **overrides),
+                            plain_params, dev)
+        out[label] = res
+    fast, twin = out["flash"], out["flash --no-fastpath"]
+    same = {k: (fast["metrics"][k], twin["metrics"][k]) for k in TICK_FIELDS}
+    same["ticks"] = (fast["ticks"], twin["ticks"])
+    equal = all(a == b for a, b in same.values())
+    log(f"[11] --no-fastpath twin against the fast run, tick fields (fast, twin): {same}: "
+        f"{'equal' if equal else 'DIFFERENT'}; prefill forwards {fast['prefill_forwards']} "
+        f"against {twin['prefill_forwards']}, wall {fast['wall_seconds']:.1f} against "
+        f"{twin['wall_seconds']:.1f} s")
+    if not equal:
+        raise AssertionError("phase 11: the --no-fastpath twin's tick fields differ")
+    if out["flash, utilization 1.4"]["metrics"]["rejected"] == 0:
+        raise AssertionError("phase 11: admission control rejected nothing at utilization 1.4")
+    if out["flash"]["metrics"]["cache_hit_rate"] <= 0:
+        raise AssertionError("phase 11: the prefix cache never hit on zipf traffic")
+
+    del plain_params
+    torch.cuda.empty_cache()
+
+    # hot reload: serve, save a new step (and plant a torn newer one), serve on
+    cfg = dataclasses.replace(get_config(QWEN), **flash)
+    params = T.init_model(cfg, seed=0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = f"{tmp}/consensus"
+        gen = LoadGenerator(LoadGenConfig(num_nodes=FLEET_NODES, rate=rate,
+                                          vocab_size=cfg.vocab_size, prompt_min=4,
+                                          prompt_max=512, output_min=1, output_max=32,
+                                          prompt_mode="pool", prompt_pool=64, seed=1))
+        skips: list[str] = []
+        # one restore per step, shared by the nodes (no per-node copy)
+        reloaders = HotReloader.for_nodes(prefix, params, FLEET_NODES, log=skips.append)
+        nodes = [FleetNode(i, ServeEngine(cfg, params, max_slots=FLEET_SLOTS, cache_len=1024,
+                                          prompt_bucket=8, device=dev),
+                           admission=AdmissionControl(max_queue=12), reloader=reloader)
+                 for i, reloader in enumerate(reloaders)]
+        fleet = ServingFleet(nodes, gen, reload_every=4)
+        _build.reset_launch_counts()
+        fleet.run(max_requests=FLEET_REQUESTS, max_ticks=30)
+        before = [n.engine.stats()["prefix_entries"] for n in nodes]
+        t0 = time.perf_counter()
+        new = {**params, "final_norm": {"scale": params["final_norm"]["scale"] * 1.5}}
+        fname = save(prefix, new, step=1)
+        with open(step_path(prefix, 2), "wb") as fh:
+            fh.write(b"PK\x03\x04 a checkpoint torn in flight")
+        log(f"[11] hot reload: after {fleet.ticks} ticks, saved {fname} "
+            f"({Path(fname).stat().st_size / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s "
+            f"and a torn step 2; prefix cache entries per node {before}")
+        rep = fleet.run(max_requests=FLEET_REQUESTS)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+    log(f"[11] hot reload: {len(skips)} polls skipped the torn file, first: "
+        f"{skips[0] if skips else None}")
+    f = rep.fleet
+    reload_state = [(n.reloader.step, n.reloader.reloads, n.reloader.skipped,
+                     n.engine.params_version, n.engine.prefix_invalidations) for n in nodes]
+    shared = all(n.engine.params is nodes[0].engine.params for n in nodes)
+    log(f"[11] hot reload: the nodes serve one restored params object: {shared}")
+    if not shared or nodes[0].engine.params is params:
+        raise AssertionError("phase 11 hot reload: the nodes do not share the restored params")
+    log(f"[11] hot reload ({card}): {rep.offered} offered, {f['completed']} completed in "
+        f"{rep.ticks} ticks; per node (step, reloads, torn files skipped, params version, "
+        f"prefix-cache invalidations) {reload_state}; {f['tok_per_s']:.1f} tokens/s")
+    launches_per_forward(11, "hot reload", counts, "flash_attention", "decode_attention",
+                         sum(n.engine.prefill_forwards for n in nodes),
+                         sum(n.engine.decode_forwards for n in nodes), layers)
+    bad = [t for n in nodes for r in n.requests for t in r.output
+           if not 0 <= t < cfg.vocab_size]
+    # each node: step 1 loaded once, the torn step 2 skipped, the prefix cache dropped
+    if (any(st != 1 or rl != 1 or sk < 1 or ver != 1 or inv < 1
+            for st, rl, sk, ver, inv in reload_state)
+            or bad or f["completed"] + f["rejected"] + f["shed"] != rep.offered):
+        raise AssertionError(f"phase 11 hot reload: {reload_state}, {len(bad)} invalid tokens")
+    del params, new, nodes, fleet
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------- phase 12
+def train_and_serve(dev) -> dict[str, int]:
+    """Phase 12: AD-GDA and its unweighted twin with ``kq4b`` fused gossip,
+    the consensus checkpointed each phase and served by a fleet of
+    classifier engines that hot-reload it.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.core.gossip import _scan_plan
+    from repro_torch.data import rotated_minority_classification
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train_serve
+
+    phases, rounds = 4, 100
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = train_serve.run(phases=phases, rounds=rounds, compressor="kq4b", device=dev,
+                           log=lambda s_: log(f"[12] {s_}"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    # one encode and one mix per leaf chunk and round (w [dim, classes], b
+    # [classes]; K = 3 ring shifts, one mix launch), two trainers
+    data = rotated_minority_classification(num_nodes=10, minority_nodes=2, seed=0)
+    enc = sum(1 if (pl := _scan_plan((10,) + shape, math.prod(shape), 1 << 24)) is None
+              else pl[1] for shape in ((data.dim, data.num_classes), (data.num_classes,)))
+    want = {"fused_encode": enc * 2 * phases * rounds, "fused_mix": enc * 2 * phases * rounds}
+    log(f"[12] train and serve, m10s4, kq4b fused, {phases} x {rounds} rounds each, "
+        f"{secs:.1f} s: launches {({k: v for k, v in counts.items() if v})}")
+    for r in rows:
+        log(f"[12] {r['algo']:10s} worst_node_acc {r['worst_node_acc']:.4f} served_worst_acc "
+            f"{r['served_worst_acc']:.4f} mean_node_acc {r['mean_node_acc']:.4f} "
+            f"first_worst_acc {r['first_worst_acc']:.4f} worst_node_loss "
+            f"{r['worst_node_loss']:.4f} reloads {r['reloads']} skipped {r['reload_skipped']} "
+            f"requests {r['requests']} probe_forwards {r['probe_forwards']:.0f}")
+    adgda, plain = rows
+    log(f"[12] AD-GDA worst-node accuracy {adgda['worst_node_acc']:.4f} against the unweighted "
+        f"twin's {plain['worst_node_acc']:.4f}: "
+        f"{'above' if adgda['worst_node_acc'] > plain['worst_node_acc'] else 'NOT above'}")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"phase 12: launches {counts} != {want}")
+    if any(r["reloads"] != 10 * phases or r["probe_forwards"] != phases + 1 for r in rows):
+        raise AssertionError("phase 12: a node missed a reload, or the probe ran off its steps")
+    if adgda["worst_node_acc"] <= plain["worst_node_acc"]:
+        raise AssertionError("phase 12: AD-GDA's worst-node accuracy is not above the "
+                             "unweighted twin's")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1364,6 +1652,14 @@ def main(argv=None) -> int:
         launches.update({k: training[k] for k in GOSSIP_KERNELS})
     if 10 in phases:
         quickstart(dev)
+    if 11 in phases:
+        fleet = fleet_full_width(dev)
+        for k in SERVING_KERNELS:
+            launches[k] = launches.get(k, 0) + fleet[k]
+    if 12 in phases:
+        served = train_and_serve(dev)
+        for k in ("fused_encode", "fused_mix"):
+            launches[k] = launches.get(k, 0) + served[k]
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

@@ -4,6 +4,7 @@ from repro_torch.checkpoint.npz import (
     load_flat,
     restore,
     restore_jax_params,
+    restore_latest,
     save,
     step_path,
     unflatten,
@@ -15,6 +16,7 @@ __all__ = [
     "load_flat",
     "restore",
     "restore_jax_params",
+    "restore_latest",
     "save",
     "step_path",
     "unflatten",

@@ -5,7 +5,9 @@ the reference's naming, so a checkpoint the JAX package wrote loads here:
 :func:`restore_jax_params` reads one into the port's parameter layout.
 bf16 leaves are stored as the 2-byte void type the reference's files carry
 and read back through int16, so neither side needs ml_dtypes.  Writes are
-atomic and durable: ``<file>.tmp``, fsync, ``os.replace``.
+atomic and durable: ``<file>.tmp``, fsync, ``os.replace``, fsync of the
+directory.  :func:`restore_latest` walks past unreadable steps to the
+newest one that loads.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ __all__ = [
     "load_flat",
     "unflatten",
     "restore_jax_params",
+    "restore_latest",
     "latest_step",
     "all_steps",
     "step_path",
@@ -72,12 +75,28 @@ def save(path: str, tree, step: int | None = None) -> str:
         with open(tmp, "wb") as f:
             np.savez(f, **payload)
             f.flush()
-            os.fsync(f.fileno())
+            os.fsync(f.fileno())  # durable before it becomes visible
         os.replace(tmp, fname)
+        _fsync_dir(os.path.dirname(fname) or ".")  # the rename itself
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return fname
+
+
+def _fsync_dir(dirname: str) -> None:
+    """fsync a directory so a completed rename survives power loss.
+    Best-effort: some filesystems refuse an fsync of a directory."""
+    try:
+        fd = os.open(dirname, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
 
 
 def load_flat(fname: str) -> dict[str, np.ndarray]:
@@ -148,3 +167,18 @@ def all_steps(path: str) -> list[int]:
 def latest_step(path: str) -> int | None:
     steps = all_steps(path)
     return steps[-1] if steps else None
+
+
+def restore_latest(path: str, tree_like, *, log=print, device="cuda"):
+    """Restore the newest *loadable* step-tagged checkpoint under ``path``
+    onto ``device``.  Returns ``(tree, step)``, or ``(None, None)`` when no
+    checkpoint loads: a corrupt, truncated or mismatched file is reported
+    through ``log`` and skipped, falling back to the previous one."""
+    for step in reversed(all_steps(path)):
+        fname = step_path(path, step)
+        try:
+            return restore(fname, tree_like, device=device), step
+        except Exception as e:  # BadZipFile / KeyError / ValueError / OSError
+            log(f"checkpoint {fname} is unreadable ({type(e).__name__}: {e}); "
+                f"falling back to the previous complete checkpoint")
+    return None, None

@@ -1,16 +1,28 @@
-"""Serving driver (port of ``repro.launch.serve``, batch mode): batched
-autoregressive decode on the consensus model.
+"""Serving entry point (port of ``repro.launch.serve``): batched autoregressive
+decode on the consensus model, or a serving fleet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 4 --prompt-len 256 --gen 16            # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --reduced --device cpu                         # plain CPU path
 
-``--restore`` loads a model parameter checkpoint written by the JAX package
-(the same path spellings as the reference CLI).  ``--fleet`` is not yet
-ported (see ROADMAP.md).  Programmatic callers can pass
-``config_overrides`` to :func:`main` (for example ``{"attn_kernel":
-"flash"}``), as the reference's tests set such knobs on the config.
+``--fleet N`` serves as a fleet of N nodes: continuous-batching engines
+behind bounded-queue admission control, fed by the seeded Poisson/Zipf load
+generator, reporting p50/p95/p99 TTFT in ticks and ms, tokens/s, queue
+depth and slot occupancy.  With ``--follow`` the fleet polls ``--restore``
+(a step-tagged prefix of checkpoints of the port's serving parameters,
+written by ``repro_torch.checkpoint.save``) and hot-reloads each new
+complete step while serving:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --reduced --device cpu --fleet 2 --rate 0.4 --requests 60 --prompts zipf \
+      --metrics-out serve_metrics.json
+
+Otherwise ``--restore`` loads a model parameter checkpoint written by the
+JAX package (the same path spellings as the reference CLI).  Programmatic
+callers can pass ``config_overrides`` to :func:`main` (for example
+``{"attn_kernel": "flash"}``), as the reference's tests set such knobs on
+the config; :func:`main` returns the metrics.
 """
 from __future__ import annotations
 
@@ -62,15 +74,131 @@ def _parser() -> argparse.ArgumentParser:
                     help="write final serving metrics to this JSON file")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the CUDA card (default) or the plain CPU path")
-    ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help="fleet mode: not yet ported (see ROADMAP.md)")
+    fleet = ap.add_argument_group("fleet mode (decentralized serving)")
+    fleet.add_argument("--fleet", type=int, default=0, metavar="N",
+                       help="serve as a fleet of N nodes (continuous batching + admission "
+                            "control + seeded load generator) instead of one fixed batch")
+    fleet.add_argument("--rate", type=float, default=0.2,
+                       help="offered load per node, requests/engine-tick")
+    fleet.add_argument("--requests", type=int, default=64,
+                       help="total requests to offer across the fleet")
+    fleet.add_argument("--slots", type=int, default=2, help="continuous-batching slots per node")
+    fleet.add_argument("--max-queue", type=int, default=12,
+                       help="bounded pending-queue length per node")
+    fleet.add_argument("--admission", choices=("reject", "shed_oldest"), default="reject",
+                       help="overload policy")
+    fleet.add_argument("--follow", action="store_true",
+                       help="poll --restore (a step-tagged prefix) while serving and "
+                            "hot-reload each new complete checkpoint (train-and-serve)")
+    fleet.add_argument("--reload-every", type=int, default=16,
+                       help="poll cadence in engine ticks for --follow")
+    fleet.add_argument("--prompts", choices=("iid", "zipf", "unique"), default="iid",
+                       help="prompt repetition: iid, zipf (a hot pool of --prompt-pool "
+                            "prompts, the prefix-cache workload), unique (all distinct)")
+    fleet.add_argument("--prompt-pool", type=int, default=64,
+                       help="pool size for --prompts zipf")
+    fleet.add_argument("--prefix-cache", type=int, default=64,
+                       help="prefix KV cache entries per engine (0 disables)")
+    fleet.add_argument("--no-fastpath", action="store_true",
+                       help="serve with the pre-cache engine (no prefix cache, batch-1 "
+                            "prefill, whole-pool decode): tick metrics are equal, only "
+                            "wall time differs")
     return ap
 
 
+def _run_fleet(args, cfg, params, dev) -> dict:
+    """The serving fleet: N nodes, admission control, seeded Poisson/Zipf
+    traffic, optional --follow hot reload from --restore.  Returns the
+    metrics payload (also written to --metrics-out)."""
+    from repro_torch.serving import (
+        AdmissionControl,
+        FleetNode,
+        HotReloader,
+        LoadGenConfig,
+        LoadGenerator,
+        ServeEngine,
+        ServingFleet,
+    )
+
+    bucket = 8
+    prompt_max = max(args.prompt_len, 4)
+    padded = -(-prompt_max // bucket) * bucket
+    cache_len = args.cache_len or (padded + args.gen)
+    gen = LoadGenerator(LoadGenConfig(
+        num_nodes=args.fleet, rate=args.rate, vocab_size=cfg.vocab_size,
+        prompt_min=4, prompt_max=prompt_max, output_min=1, output_max=args.gen,
+        seed=args.seed,
+        prompt_mode={"iid": "iid", "zipf": "pool", "unique": "unique"}[args.prompts],
+        prompt_pool=args.prompt_pool,
+    ))
+    # the nodes share one params object (no per-node copy of the weights),
+    # and their reloaders restore each step once for all of them
+    reloaders = (HotReloader.for_nodes(args.restore, params, args.fleet) if args.follow
+                 else [None] * args.fleet)
+    nodes = [
+        FleetNode(
+            i,
+            ServeEngine(cfg, params, max_slots=args.slots, cache_len=cache_len,
+                        prompt_bucket=bucket, fastpath=not args.no_fastpath,
+                        prefix_cache=args.prefix_cache, device=dev),
+            admission=AdmissionControl(max_queue=args.max_queue, policy=args.admission),
+            reloader=reloader,
+        )
+        for i, reloader in enumerate(reloaders)
+    ]
+    if args.follow:
+        for node in nodes:  # start from the newest complete checkpoint on disk
+            node.maybe_reload()
+    fleet = ServingFleet(nodes, gen, reload_every=args.reload_every if args.follow else 0)
+    rep = fleet.run(max_requests=args.requests, max_ticks=1_000_000)
+
+    f = rep.fleet
+    reloads = sum(n.reloader.reloads for n in nodes if n.reloader)
+    print(f"fleet={args.fleet}x{args.slots} rate={args.rate}/node device={dev} "
+          f"offered={rep.offered} completed={f['completed']} "
+          f"rejected={f['rejected']} shed={f['shed']} ticks={rep.ticks}")
+    print(f"ttft ticks p50/p95/p99 = {f['p50_ttft_ticks']:.0f}/"
+          f"{f['p95_ttft_ticks']:.0f}/{f['p99_ttft_ticks']:.0f}  "
+          f"ttft ms p50/p99 = {f['p50_ttft_ms']:.1f}/{f['p99_ttft_ms']:.1f}  "
+          f"{f['tok_per_s']:.1f} tok/s  {f['per_token_ms']:.1f} ms/token")
+    print(f"queue depth mean/max = {f['mean_queue_depth']:.2f}/"
+          f"{f['max_queue_depth']:.0f}  slot occupancy = {f['slot_occupancy']:.2f}"
+          + (f"  reloads = {reloads}" if args.follow else ""))
+    print(f"cache_hit_rate = {f['cache_hit_rate']:.3f}  "
+          f"prefill_skipped = {f['prefill_skipped']:.0f}")
+    payload = {
+        "arch": cfg.name,
+        "device": str(dev),
+        "fleet": args.fleet,
+        "slots": args.slots,
+        "rate": args.rate,
+        "offered": rep.offered,
+        "ticks": rep.ticks,
+        "wall_seconds": rep.wall_seconds,
+        "metrics": f,
+        "nodes": rep.node_summaries,
+        # model forwards over the fleet (each launches one attention kernel per layer)
+        "prefill_forwards": sum(n.engine.prefill_forwards for n in nodes),
+        "decode_forwards": sum(n.engine.decode_forwards for n in nodes),
+    }
+    if args.follow:
+        payload["reloads"] = reloads
+        payload["reload_steps"] = [n.reloader.step for n in nodes]
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            json.dump(payload, fh, indent=2, default=float)
+        print(f"metrics -> {args.metrics_out}")
+    # what was served, for callers that check it (not written to --metrics-out)
+    payload["served"] = [{"node": n.node_id, "prompt": list(r.prompt), "output": list(r.output)}
+                         for n in nodes for r in n.requests if r.status == "done"]
+    return payload
+
+
 def main(argv=None, *, config_overrides: dict | None = None) -> dict:
-    args = _parser().parse_args(argv)
-    if args.fleet:
-        raise SystemExit("--fleet is not yet ported to repro_torch, see ROADMAP.md")
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.follow and not (args.fleet and args.restore):
+        ap.error("--follow needs --fleet N and --restore <step-tagged prefix>")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -81,12 +209,14 @@ def main(argv=None, *, config_overrides: dict | None = None) -> dict:
     cache_len = args.cache_len or (S + args.gen)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    if args.restore:
+    if args.restore and not args.follow:
         fname = _resolve_restore(args.restore)
         params = restore_jax_params(fname, cfg, device=dev)
         print(f"restored params from {fname}")
     else:
         params = T.init_model(cfg, generator=gen, device=dev)
+    if args.fleet:
+        return _run_fleet(args, cfg, params, dev)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, S), generator=gen, device=dev)
 
     prefill = st.make_prefill_step(cfg, cache_len=cache_len)

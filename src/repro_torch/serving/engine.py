@@ -9,21 +9,31 @@
   step with per-slot positions;
 * finished requests (max tokens or EOS) release their slot at once.
 
-Three levers of the reference's fast path leave every tick-denominated
-result unchanged -- admission order, completion ticks and generated tokens
--- and only save host and device time:
+The fast path (``fastpath=True``, the default) has three levers that leave
+every tick-denominated result unchanged -- admission order, completion
+ticks and generated tokens -- and only save host and device time:
 
-* prefix KV cache: post-prefill cache rows keyed by ``(bucket,
-  quantized_kv, prompt)``, LRU-bounded, invalidated when ``engine.params``
-  is reassigned, bypassed for windowed / recurrent archs (their exact-length
-  prefill makes a cached row position-dependent);
-* batched prefill: the same-bucket requests admitted in one tick run as one
-  forward, batch padded to a power of two;
-* active-slot decode: below full occupancy the decode gathers the active
-  slots (padded to a power of two) instead of decoding the whole pool.
+* prefix KV cache (``prefix_cache`` entries): post-prefill cache rows keyed
+  by ``(bucket, quantized_kv, prompt)``, LRU-bounded, invalidated when
+  ``engine.params`` is reassigned (hot reload), bypassed for windowed /
+  recurrent archs (their exact-length prefill makes a cached row
+  position-dependent);
+* batched prefill (``batched_prefill``): the same-bucket requests admitted
+  in one tick run as one forward, batch padded to a power of two;
+* active-slot decode (``active_decode``): below full occupancy the decode
+  gathers the active slots (padded to a power of two) instead of decoding
+  the whole pool.
 
-The reference's ``fastpath=False`` twin (and a custom ``sample``) come with
-the fleet port (ROADMAP.md); greedy argmax sampling is built in.
+``fastpath=False`` with the levers defaulted is the reference's pre-cache
+engine: one batch-1 prefill per request, whole-pool decode, no prefix
+cache.  ``max_prefill_programs`` is accepted for the reference's signature
+and bounds nothing: the port compiles no programs.  ``sample(logits,
+generator)`` picks each decoded token from ``[rows, vocab]`` logits with the
+engine's seeded ``torch.Generator`` (the reference passes a PRNG key);
+greedy argmax is the default.  The first token is always the prefill's
+argmax.  ``first_wall`` is stamped once the first token is on the host, so
+wall TTFT includes the prefill; ``prefill_forwards`` / ``decode_forwards``
+count model forwards (one kernel launch per layer each).
 
 Admission is strictly FIFO: each tick runs an admit / finish fixpoint.
 There is no jit; ``prefill_traces`` / ``decode_traces`` count the first use
@@ -37,6 +47,7 @@ import dataclasses
 import itertools
 import time
 from collections import OrderedDict, deque
+from typing import Callable
 
 import numpy as np
 import torch
@@ -110,8 +121,13 @@ class ServeEngine:
         max_slots: int = 4,
         cache_len: int = 256,
         prompt_bucket: int = 32,
+        sample: Callable[[torch.Tensor, torch.Generator], torch.Tensor] | None = None,
         extra_inputs: dict | None = None,
+        fastpath: bool = True,
         prefix_cache: int = 64,
+        batched_prefill: bool | None = None,
+        active_decode: bool | None = None,
+        max_prefill_programs: int = 32,  # unused: no program cache
         device="cuda",
     ):
         if extra_inputs:
@@ -123,7 +139,12 @@ class ServeEngine:
         self.max_slots = max_slots
         self.cache_len = cache_len
         self.prompt_bucket = prompt_bucket
-        self._prefix_max = int(prefix_cache)  # 0 disables the prefix cache
+        # the master toggle defaults the levers; the pre-cache engine
+        # (fastpath=False) ignores them, as the reference's does
+        self._fast = bool(fastpath)
+        self._batched_prefill = self._fast and (batched_prefill is None or batched_prefill)
+        self._active_decode = self._fast and (active_decode is None or active_decode)
+        self._prefix_max = int(prefix_cache) if self._fast else 0  # 0 disables it
 
         self.cache = T.init_cache(cfg, max_slots, cache_len, device=self.device)
         self.pos = np.zeros(max_slots, np.int64)  # context length per slot
@@ -136,6 +157,8 @@ class ServeEngine:
         # a log2-bounded decode set) is the warm-cache contract
         self.prefill_traces = 0
         self.decode_traces = 0
+        self.prefill_forwards = 0
+        self.decode_forwards = 0
         self.tokens_generated = 0
         self._prefix: OrderedDict[tuple, tuple] = OrderedDict()
         self.params_version = 0
@@ -146,6 +169,8 @@ class ServeEngine:
         self.prefill_skipped = 0
 
         self._params = params
+        self._sample = sample or (lambda logits, generator: torch.argmax(logits, dim=-1))
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
         mixers = {cfg.mixer_for_layer(i) for i in range(cfg.num_layers)}
         self._recurrent = bool(mixers & {"mamba2", "rglru"})
         # windowed ring buffers attend every slot once wrapped, so bucket
@@ -207,21 +232,23 @@ class ServeEngine:
 
     def _post_admit(self, req: Request, slot: int, first: int, plen: int) -> None:
         # bucket-padded positions beyond plen hold garbage K/V; decode masks
-        # by position (valid = idx <= pos), so they are never attended
+        # by position (valid = idx <= pos), so they are never attended.
+        # ``first`` is a host int: the device has delivered the first token
+        req.first_wall = time.time()
         self.pos[slot] = plen
         self.last_tok[slot] = first
         req.output.append(first)
         self.tokens_generated += 1
         self.active[slot] = req
 
-    def _admit_many(self, pairs: list) -> None:
+    def _admit(self, pairs: list) -> None:
         """Prefix-cache hits splice a stored row; misses run grouped per
-        bucket as one batched prefill each."""
+        bucket as one batched prefill each (with ``batched_prefill``), else
+        one batch-1 prefill each in admission order."""
         hits, misses = [], []
         cacheable = self._prefix_max > 0 and not (self._recurrent or self._windowed)
         for req, slot in pairs:
             req.admit_tick = self._steps
-            req.first_wall = time.time()
             req.status = "active"
             plen = len(req.prompt)
             bucket = self._bucket_for(req)
@@ -243,6 +270,10 @@ class ServeEngine:
             _put_rows(self.cache, row, self._tensor([slot]))
             self._post_admit(req, slot, first, plen)
 
+        if not self._batched_prefill:  # one forward each, in admission order
+            for item in misses:
+                self._prefill_group(item[2], [item])
+            return
         groups: dict[int, list] = {}
         for item in misses:
             groups.setdefault(item[2], []).append(item)
@@ -260,6 +291,7 @@ class ServeEngine:
         self._first_use("prefill_traces", "prefill", bucket, bpad)
         logits, cache_b = T.prefill(self.params, {"tokens": self._tensor(toks)}, self.cfg,
                                     cache_len=self.cache_len)
+        self.prefill_forwards += 1
         # first generated token per row: argmax at its last REAL position
         firsts = torch.argmax(logits[torch.arange(bpad, device=self.device),
                                      self._tensor(last)], dim=-1).tolist()
@@ -296,21 +328,22 @@ class ServeEngine:
             r.eos_id is not None and bool(r.output) and r.output[-1] == r.eos_id
         )
 
-    def _decode_active(self) -> None:
+    def _decode(self) -> None:
         """One token for every active slot.
 
-        Below full occupancy the active slots are gathered,
-        padded to a power of two with copies of the first active slot, and
-        only the real rows are written back.  Rows are independent, so the
-        tokens equal those of a full-pool step.
+        With ``active_decode``, below full occupancy the active slots are
+        gathered, padded to a power of two with copies of the first active
+        slot, and only the real rows are written back.  Rows are
+        independent, so the tokens equal those of a full-pool step.
         """
         order = sorted(self.active)
         n = len(order)
-        bpad = _pow2(n) if n < self.max_slots else self.max_slots
+        bpad = _pow2(n) if (self._active_decode and n < self.max_slots) else self.max_slots
         if bpad >= self.max_slots:
             self._first_use("decode_traces", "decode")
-            logits, self.cache = T.decode_step(self.params, self._tensor(self.last_tok)[:, None],
-                                               self.cache, self._tensor(self.pos), self.cfg)
+            logits, self.cache = T.decode_step(self.params,
+                                               self._tensor(self.last_tok)[:, None], self.cache,
+                                               self._tensor(self.pos), self.cfg)
             rows = {slot: slot for slot in order}
         else:
             gidx = np.empty(bpad, np.int64)
@@ -323,7 +356,8 @@ class ServeEngine:
                                         self.cfg)
             _put_rows(self.cache, [{k: t[:n] for k, t in c.items()} for c in sub], g[:n])
             rows = {slot: r for r, slot in enumerate(order)}
-        next_tok = torch.argmax(logits[:, 0], dim=-1).tolist()
+        self.decode_forwards += 1
+        next_tok = torch.as_tensor(self._sample(logits[:, 0], self.generator)).reshape(-1).tolist()
         for slot in order:
             r = self.active[slot]
             tok = int(next_tok[rows[slot]])
@@ -349,9 +383,9 @@ class ServeEngine:
                 if not self.pending:
                     break
                 pairs.append((self.pending.popleft(), slot))
-            self._admit_many(pairs)
+            self._admit(pairs)
         if self.active:
-            self._decode_active()
+            self._decode()
         self._steps += 1
 
     def run(self, requests: list[Request], max_ticks: int = 10_000) -> list[Request]:

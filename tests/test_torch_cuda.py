@@ -1,7 +1,9 @@
 """repro_torch on the card: each CUDA kernel against its plain version, the
-reduced model and engine with the kernels against the plain path, and the
+reduced model and engine with the kernels against the plain path, the
 gossip kernels (quantize, dequantize, fused encode, fused mix, block top-k)
-against their plain versions bit for bit, alone and inside a trainer round.
+against their plain versions bit for bit, alone and inside a trainer round,
+and the serving fleet on the kernels (its --no-fastpath twin, a hot
+reload, the classifier engine).
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX (the card's machine has none); run it there with
@@ -37,9 +39,11 @@ from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import sliding_window as ksw
 from repro_torch.kernels.ref import (encode_scale, f32_full, p_rounding_bound, quantize_kv_ref,
                                      tau_for)
-from repro_torch.launch import train
+from repro_torch.checkpoint import save, step_path
+from repro_torch.launch import serve, train, train_serve
 from repro_torch.models import transformer as T
-from repro_torch.serving import Request, ServeEngine
+from repro_torch.serving import (BatchedProbe, ClassifierEngine, EvalRequest, FleetNode,
+                                 HotReloader, Request, ServeEngine)
 
 pytestmark = pytest.mark.cuda
 
@@ -518,3 +522,89 @@ def test_reduced_trainer_runs_through_the_block_topk_kernel(cuda):
                      compressor=KernelBlockTopK(0.25, 1024))
     assert all(np.isfinite(res["losses"])) and res["gamma"] == 0.125
     assert _build.launch_counts()["block_topk"] > 0
+
+
+# ------------------------------------------------------------- serving fleet
+FLEET_ARGV = ["--arch", "qwen3-1.7b", "--reduced", "--fleet", "2", "--slots", "2",
+              "--prompts", "zipf", "--prompt-pool", "8", "--prompt-len", "24", "--gen", "6",
+              "--cache-len", "48", "--requests", "24", "--rate", "0.5"]
+
+
+@pytest.mark.parametrize("overrides,prefill_kernel,decode_kernel", [
+    ({"attn_kernel": "flash"}, "flash_attention", "decode_attention"),
+    ({"attn_kernel": "flash", "quantized_kv": True}, "flash_attention", "decode_attention_int8"),
+    ({"attn_kernel": "block_sparse"}, "block_sparse_attention", "decode_attention"),
+])
+def test_fleet_on_the_kernels_equals_its_twin(cuda, overrides, prefill_kernel, decode_kernel):
+    """serve.py --fleet at reduced width (full attention, so the prefix cache
+    is on): every prefill and decode forward launches its kernel once per
+    layer, and the --no-fastpath twin has the same tick fields."""
+    overrides = {**overrides, "long_context_window": None}
+    runs = {}
+    for extra in ([], ["--no-fastpath"]):
+        _build.reset_launch_counts()
+        res = serve.main(FLEET_ARGV + extra, config_overrides=overrides)
+        counts = _build.launch_counts()
+        layers = get_config("qwen3-1.7b").reduced().num_layers
+        assert counts[prefill_kernel] == layers * res["prefill_forwards"] > 0
+        assert counts[decode_kernel] == layers * res["decode_forwards"] > 0
+        runs[bool(extra)] = res
+    fast, twin = runs[False], runs[True]
+    assert fast["metrics"]["cache_hit_rate"] > 0 and twin["metrics"]["cache_hit_rate"] == 0
+    assert fast["ticks"] == twin["ticks"]
+    for k in ("completed", "rejected", "shed", "p50_ttft_ticks", "p95_ttft_ticks",
+              "p99_ttft_ticks", "mean_queue_depth", "max_queue_depth", "slot_occupancy"):
+        assert fast["metrics"][k] == twin["metrics"][k], k
+
+
+def test_fleet_hot_reload_on_the_card(cuda, tmp_path):
+    """A node serving on the card reloads a saved step onto the card, skips
+    a torn newer file, and drops its prefix cache."""
+    cfg = _reduced(long_context_window=None, attn_kernel="flash")
+    params = T.init_model(cfg, seed=0, device=cuda)
+    prefix = str(tmp_path / "consensus")
+    node = FleetNode(0, ServeEngine(cfg, params, max_slots=2, cache_len=48, prompt_bucket=8,
+                                    device=cuda),
+                     reloader=HotReloader(prefix, params, log=lambda s: None))
+    for n in (5, 9, 5):
+        node.offer(Request(prompt=list(range(1, n + 1)), max_new_tokens=3), tick=0)
+    while not node.drained:
+        node.tick()
+    assert node.engine.stats()["prefix_entries"] > 0
+    new = {**params, "final_norm": {"scale": params["final_norm"]["scale"] * 2}}
+    save(prefix, new, step=1)
+    with open(step_path(prefix, 2), "wb") as f:
+        f.write(b"PK\x03\x04 torn")
+    assert node.maybe_reload() == 1 and node.reloader.skipped == 1
+    got = node.engine.params["final_norm"]["scale"]
+    assert got.device.type == "cuda" and torch.equal(got, new["final_norm"]["scale"])
+    assert node.engine.stats()["prefix_entries"] == 0 and node.engine.prefix_invalidations == 1
+    node.offer(Request(prompt=[1, 2, 3, 4, 5], max_new_tokens=3), tick=node.engine._steps)
+    while not node.drained:
+        node.tick()
+    assert len(node.requests[-1].output) == 3
+
+
+def test_classifier_engine_on_the_card(cuda):
+    """The classifier engine and the batched probe on the card predict what
+    they predict on the CPU."""
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(6, 4)).astype(np.float32)
+    b = rng.normal(size=4).astype(np.float32)
+    x = rng.normal(size=(11, 6)).astype(np.float32)
+    y = rng.integers(0, 4, 11)
+    want = np.argmax(x @ w + b, axis=-1)
+    for dev in (cuda, torch.device("cpu")):
+        params = {"w": torch.from_numpy(w).to(dev), "b": torch.from_numpy(b).to(dev)}
+        eng = ClassifierEngine(train_serve.logistic_apply, params, max_slots=4)
+        reqs = [EvalRequest(features=x[i:i + 1]) for i in range(len(x))]
+        for r in reqs:
+            eng.submit(r)
+        while eng.pending:
+            eng.step()
+        assert [r.output[0] for r in reqs] == want.tolist()
+        probe = BatchedProbe(train_serve.logistic_apply, {"a": (x[:5], y[:5]), "b": (x[5:], y[5:])},
+                             loss_fn=train_serve.loss_fn)
+        q = probe.probe(params, step=3)
+        assert q["a"]["acc"] == float((want[:5] == y[:5]).mean()) and probe.probe_forwards == 1
+        assert probe.probe(params, step=3) is q and probe.probe_forwards == 1

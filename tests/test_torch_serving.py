@@ -148,8 +148,9 @@ def test_serve_batch_mode_on_cpu(tmp_path):
     assert flash["tokens"] == plain["tokens"]
     metrics = json.loads(out.read_text())
     assert metrics["arch"] == "qwen3-1.7b-smoke" and metrics["gen"] == 5
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        tserve.main(argv + ["--fleet", "2"])
+    # --fleet, refused before the fleet was ported, now serves
+    fleet = tserve.main(argv + ["--fleet", "2", "--requests", "6"])
+    assert fleet["offered"] >= 6 and fleet["metrics"]["completed"] == fleet["offered"]
 
 
 def test_serve_restores_jax_checkpoint(tmp_path, capsys):
