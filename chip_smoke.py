@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py --phases 1,2,8,9   # kernels, one round, the trainer
     python3 chip_smoke.py --phases 11,12     # the serving fleet, train and serve
+    python3 chip_smoke.py --phases 2,13      # kernels, then the model zoo at full width
 
 Phases (any failure exits non-zero):
   1. card, versions, and an nvcc build of every kernel from ``csrc/``, with
@@ -45,12 +46,23 @@ Phases (any failure exits non-zero):
  12. train and serve: AD-GDA and its unweighted twin on 10 nodes with
      ``kq4b`` fused gossip, the consensus checkpointed each phase and served
      by classifier engines that hot-reload it; AD-GDA's worst-node accuracy
-     must be above the twin's.
-Phases 4-6, 9, 11 and 12 are the main paths: launch counters are zeroed just
-before each run and read just after, and every kernel the run goes through
-must have launched (in phase 11, once per layer and model forward).  The
-line before the last is the kernels' JSON summary; the last line is the
-run's JSON status.
+     must be above the twin's;
+ 13. the model zoo at full width, one model on the card at a time:
+     granite-20b (MQA, 48 query heads on one kv head) and recurrentgemma-2b
+     (RG-LRU + local attention at hd 256) through prefill + decode against
+     the plain path, ``ServeEngine`` with flash, flash + int8 KV and
+     block-sparse prefill, and ``serve.py --fleet 2`` with its --no-fastpath
+     twin (recurrentgemma-2b also one 4096-token request that wraps its
+     2048-row rings); qwen3-4b and command-r-35b (30.3 B parameters) through
+     ``serve.py`` batch mode against the plain path; peak memory per model.
+Phases 4-6, 9, 11, 12 and 13 are the main paths: launch counters are zeroed
+just before each run and read just after, and every kernel the run goes
+through must have launched (in phases 11 and 13, once per attention layer
+and model forward).  Phase 2 also checks and times the attention and decode
+kernels at the zoo's shapes (hd 256; decode at G 48, G 10 with hd 256, G 4
+and G 8), and the decode kernel's split body against its wide body where
+both apply; the zoo rows' launches come from phase 13.  The line before the last is the kernels' JSON summary; the
+last line is the run's JSON status.
 """
 from __future__ import annotations
 
@@ -234,6 +246,77 @@ def attention_sass() -> None:
 
 
 # --------------------------------------------------------------- phase 2
+def decode_row(name, B, L, KV, G, hd, valid, quant, make, failures: list) -> dict:
+    """One bf16 decode row (int8 K/V with ``quant``): the kernel against its
+    plain version, then per-call, device and plain ms, SDPA's (bf16 only),
+    and the bound over the live rows; ``make()`` draws fresh inputs
+    ``(q, k, v, valid, k_scale, v_scale)``.  Returns the row's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode as kd
+
+    def run_kernel(q, k, v, vl, ks, vs):
+        return kd.decode_attention(q, k, v, vl, k_scale=ks, v_scale=vs)
+
+    def run_plain(q, k, v, vl, ks, vs):
+        return kd.decode_attention_plain(q, k, v, vl, k_scale=ks, v_scale=vs)
+
+    def sdpa(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=True)
+
+    n_valid = int(valid.sum())  # rows the result depends on; the bound counts only these
+    shape = f"B={B} L={L} KV={KV} G={G} hd={hd} {'int8 KV' if quant else 'bfloat16'}"
+    args = make()
+    err = within_tol(f"decode{' int8' if quant else ''} B{B} L{L} KV{KV} G{G} hd{hd} bfloat16",
+                     run_kernel(*args), run_plain(*args), "bfloat16", failures)
+    nbytes = (2 * n_valid * KV * hd * (1 if quant else 2) + 2 * B * KV * G * hd * 2 + B * L
+              + (2 * n_valid * KV * 4 if quant else 0))
+    sets = copies_past_l2(make, nbytes)
+    ms, plain_ms = time_ms(run_kernel, sets, 50), time_ms(run_plain, sets, 20)
+    dev_ms = device_ms(run_kernel, sets, 50)
+    lib_ms = lib_dev = None
+    if not quant:
+        tsets = [(a[0].reshape(B, KV * G, 1, hd), a[1].transpose(1, 2).contiguous(),
+                  a[2].transpose(1, 2).contiguous(), a[3][:, None, None, :]) for a in sets]
+        lib_ms, lib_dev = time_ms(sdpa, tsets, 50), device_ms(sdpa, tsets, 50)
+        del tsets
+    b_ms, b_by = bound(4 * n_valid * KV * G * hd, nbytes, "bfloat16")
+    lib_txt = ("none" if quant else f"per call {lib_ms:.4f} ms, device {lib_dev:.4f} ms "
+               f"({b_ms / lib_dev:.1%} of the bound)")
+    log(f"  rate {name} [{shape}]: per call {ms:.4f} ms ({b_ms / ms:.1%} of the bound), device "
+        f"{dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound); plain {plain_ms:.4f} ms; library "
+        f"(SDPA) {lib_txt}; bound {b_ms:.4f} ms ({b_by})")
+    return dict(name=name, route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
+                replaces="src/repro/kernels/decode.py:125", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, shape=f"{shape}, {n_valid} valid rows")
+
+
+def decode_bodies(label, make, failures: list) -> None:
+    """The decode kernel's split body (what runs at G <= 2, hd 64 / 128)
+    against its wide body forced on the same inputs, bf16 and int8 KV: the
+    wide body checked against the plain version, then the device ms of both
+    in turns (split, wide, wide, split).  ``make(quant)`` draws inputs."""
+    from repro_torch.kernels import decode as kd
+
+    def split(q, k, v, vl, ks, vs):
+        return kd.decode_attention(q, k, v, vl, k_scale=ks, v_scale=vs)
+
+    def wide(q, k, v, vl, ks, vs):
+        return kd.decode_attention_wide_body(q, k, v, vl, k_scale=ks, v_scale=vs)
+
+    for quant in (False, True):
+        sets = [make(quant) for _ in range(4)]
+        q, k, v, vl, ks, vs = sets[0]
+        within_tol(f"decode wide body forced {label}{' int8' if quant else ''}", wide(*sets[0]),
+                   kd.decode_attention_plain(q, k, v, vl, k_scale=ks, v_scale=vs), "bfloat16",
+                   failures)
+        turns = [device_ms(fn, sets, 50) for fn in (split, wide, wide, split)]
+        log(f"  decode bodies {label}{' int8 KV' if quant else ' bf16'}: device ms split "
+            f"{turns[0]:.4f} / {turns[3]:.4f}, wide {turns[1]:.4f} / {turns[2]:.4f} (wide / split "
+            f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f}x)")
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
     import torch
@@ -335,7 +418,6 @@ def check_kernels(dev) -> dict:
     slot = torch.remainder(pos, L)
     age = torch.remainder(slot[:, None] - idx[None, :], L)
     valid = age < torch.clamp(pos + 1, max=L)[:, None]
-    n_valid = int(valid.sum())  # rows the result depends on; the bound counts only these
 
     def decode_inputs(dtype, quant):
         q = randn(B, KV, G, hd, dtype=dtype)
@@ -347,54 +429,17 @@ def check_kernels(dev) -> dict:
         vq, vs = quantize_kv_ref(v)
         return (q, kq, vq, valid, ks, vs)
 
-    def run_kernel(q, k, v, vl, ks, vs):
-        return kd.decode_attention(q, k, v, vl, k_scale=ks, v_scale=vs)
-
-    def run_plain(q, k, v, vl, ks, vs):
-        return kd.decode_attention_plain(q, k, v, vl, k_scale=ks, v_scale=vs)
-
-    for name, dt, quant in (("decode_attention", "bfloat16", False),
-                            ("decode_attention_int8", "bfloat16", True),
-                            (None, "float32", False)):
-        dtype = getattr(torch, dt)
-        args = decode_inputs(dtype, quant)
-        out = run_kernel(*args)
-        torch.cuda.synchronize()
-        label = f"decode{' int8' if quant else ''} B{B} L{L} KV{KV} G{G} hd{hd} {dt}"
-        err = compare(label, out, run_plain(*args), dt)
-        if name is None:
-            continue
-        el = 1 if quant else dtype.itemsize
-        nbytes = (2 * n_valid * KV * hd * el + 2 * B * KV * G * hd * dtype.itemsize + B * L
-                  + (2 * n_valid * KV * 4 if quant else 0))
-        sets = copies_past_l2(lambda: decode_inputs(dtype, quant), nbytes)
-        ms = time_ms(run_kernel, sets, 50)
-        plain_ms = time_ms(run_plain, sets, 20)
-        lib_ms = None
-        if not quant:
-            tsets = [(a[0].reshape(B, KV * G, 1, hd), a[1].transpose(1, 2).contiguous(),
-                      a[2].transpose(1, 2).contiguous(), a[3][:, None, None, :]) for a in sets]
-            lib_ms = time_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
-                q_, k_, v_, attn_mask=m_, enable_gqa=True), tsets, 50)
-        b_ms, b_by = bound(4 * n_valid * KV * G * hd, nbytes, dt)
-        dev_ms = device_ms(run_kernel, sets, 50)
-        lib_dev = None if quant else device_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
-            q_, k_, v_, attn_mask=m_, enable_gqa=True), tsets, 50)
-        lib_txt = ("none" if quant else f"per call {lib_ms:.4f} ms, device {lib_dev:.4f} ms "
-                   f"({b_ms / lib_dev:.1%} of the bound)")
-        log(f"  rate {name}: per call {ms:.4f} ms ({b_ms / ms:.1%} of the bound), device "
-            f"{dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound); library "
-            f"(SDPA) {lib_txt}; the unsplit design's {UNSPLIT_DECODE_MS[name]:.4f} ms is "
-            f"{UNSPLIT_DECODE_MS[name] / ms:.1f}x the per-call time")
-        if not quant:
-            del tsets
-        records[name] = dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
-            replaces="src/repro/kernels/decode.py:125", max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            shape=f"B={B} L={L} KV={KV} G={G} hd={hd} {'int8 KV' if quant else dt}, "
-                  f"{n_valid} valid rows")
-        del sets
+    for name, quant in (("decode_attention", False), ("decode_attention_int8", True)):
+        rec = decode_row(name, B, L, KV, G, hd, valid, quant,
+                         lambda: decode_inputs(torch.bfloat16, quant), failures)
+        log(f"  the unsplit design's {UNSPLIT_DECODE_MS[name]:.4f} ms is "
+            f"{UNSPLIT_DECODE_MS[name] / rec['ms']:.1f}x the per-call time")
+        records[name] = rec
+    decode_bodies(f"qwen3-1.7b G{G} hd{hd}", lambda quant: decode_inputs(torch.bfloat16, quant),
+                  failures)
+    q, k, v, vl, _, _ = decode_inputs(torch.float32, False)
+    compare(f"decode B{B} L{L} KV{KV} G{G} hd{hd} float32", kd.decode_attention(q, k, v, vl),
+            kd.decode_attention_plain(q, k, v, vl), "float32")
     decode_edge_cases(dev, gen, failures)
     decode_workspace_cost(dev)
     torch.cuda.synchronize()
@@ -414,10 +459,10 @@ UNSPLIT_DECODE_MS = {"decode_attention": 0.1735, "decode_attention_int8": 0.1972
 
 
 def decode_edge_cases(dev, gen, failures: list) -> None:
-    """The split decode kernel against its plain version where its plan has
+    """The decode kernel against its plain version where its split plan has
     edges: a batch row with no live position (the uniform mean of V), L below
-    one 64-row tile, L not a multiple of it, G = 1 and G = 8; each for bf16,
-    f32 and int8 KV."""
+    one 64-row tile, L not a multiple of it, G = 1 and G = 8 (the split and
+    the wide body); each for bf16, f32 and int8 KV."""
     import torch
 
     from repro_torch.kernels import decode as kd
@@ -559,6 +604,209 @@ def check_block_sparse(dev) -> dict:
     return records
 
 
+# the model zoo's shapes beyond qwen3-1.7b's: recurrentgemma-2b's local
+# attention (hd 256, 10 heads on one kv head, window 2048) and decode over its
+# 2048-row ring; granite-20b's decode (48 query heads on one kv head), both
+# with bf16 and int8 KV as phase 13's engines serve them; qwen3-4b's (G 4)
+# and command-r-35b's (G 8) decode over the 272-row linear caches of their
+# serve.py batches, bf16 as served (int8 KV checked, not a row: no main path
+# runs it at these shapes)
+RG_ATTN = dict(B=1, S=8448, H=10, hd=256, window=2048)
+ZOO_DECODE = {
+    "G48 hd128": dict(B=4, L=1024, KV=1, G=48, hd=128, arch="granite-20b", int8_row=True),
+    "G10 hd256": dict(B=4, L=2048, KV=1, G=10, hd=256, arch="recurrentgemma-2b", int8_row=True),
+    "G4 hd128": dict(B=4, L=272, KV=8, G=4, hd=128, arch="qwen3-4b", int8_row=False),
+    "G8 hd128": dict(B=2, L=272, KV=8, G=8, hd=128, arch="command-r-35b", int8_row=False),
+}
+
+
+def check_wide_shapes(dev) -> dict:
+    """Phase 2's rows for the model zoo's shapes: flash and the sliding
+    window at hd 256 (recurrentgemma-2b's prefill, short and at S 8448 with
+    its 2048 window), block-sparse at the same shape, f32 bodies at hd 256,
+    and decode at G 48 / hd 128 and G 10 / hd 256 (bf16 and int8 KV, a
+    wrapped ring) and at qwen3-4b's G 4 and command-r-35b's G 8 (hd 128,
+    272-row caches), each against its plain version and timed; then the decode edge cases at the
+    new G and hd.  Each record names the counter
+    and the arch whose phase-13 runs give its launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import block_sparse as kbs
+    from repro_torch.kernels import decode as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import sliding_window as ksw
+    from repro_torch.kernels.flash_attention import tile_q
+    from repro_torch.kernels.ref import block_sparse_mask, p_rounding_bound, quantize_kv_ref
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    failures: list[str] = []
+    records: dict[str, dict] = {}
+    rg = "recurrentgemma-2b"
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    def pairs(S, window):
+        return sum(min(i + 1, window or S) for i in range(S))
+
+    def attention_row(name, label, fn, plain, lib, q, k, v, dt, live_pairs, reps, sets=None):
+        """Check ``fn`` against ``plain`` (with the P-rounding slack for bf16),
+        time both and the library call, log the device rates; the record."""
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        ref = plain(q, k, v)
+        slack = None if dt == "float32" else p_rounding_bound(lambda v_: plain(q, k, v_), v)
+        err = within_tol(label, out, ref, dt, failures, slack)
+        del out, ref, slack
+        B, S, H, hd = q.shape
+        nbytes = 4 * B * S * H * hd * q.element_size()
+        sets = sets or [(q, k, v)]
+        ms = time_ms(fn, sets, reps)
+        plain_ms = time_ms(plain, sets, max(2, reps // 4))
+        tsets = [tuple(t.transpose(1, 2).contiguous() for t in s_) for s_ in sets]
+        lib_ms = time_ms(lib, tsets, reps)
+        flops = 4 * B * H * hd * live_pairs
+        b_ms, b_by = bound(flops, nbytes, dt)
+        dev_ms, lib_dev = device_ms(fn, sets, reps), device_ms(lib, tsets, reps)
+        log(f"  time {name} [{label}]: per call {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s, {b_ms / ms:.1%} of the bound), device {dev_ms:.4f} ms "
+            f"({b_ms / dev_ms:.1%}); plain {plain_ms:.4f} ms; library (SDPA) per call "
+            f"{lib_ms:.4f} ms, device {lib_dev:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        counter = name.split(" ")[0]
+        return dict(name=name, route="cuda", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                    counter=counter, arch=rg, shape=label)
+
+    # -- sliding window and block-sparse at recurrentgemma-2b's long prefill
+    B, S, H, hd, W = (RG_ATTN[k] for k in ("B", "S", "H", "hd", "window"))
+    q, k, v = (randn(B, S, H, hd, dtype=torch.bfloat16) for _ in range(3))
+    qpos = torch.arange(S, device=dev)
+    band = (qpos[:, None] >= qpos[None, :]) & (qpos[:, None] - qpos[None, :] < W)
+    rec = attention_row(
+        "sliding_window_attention hd256", f"B{B} S{S} H{H} hd{hd} window={W} bf16",
+        lambda a, b_, c: ksw.sliding_window_attention(a, b_, c, window=W),
+        lambda a, b_, c: ksw.sliding_window_attention_plain(a, b_, c, window=W),
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=band),
+        q, k, v, "bfloat16", pairs(S, W), 5)
+    records[rec["name"]] = dict(rec, source="src/repro_torch/csrc/flash_attn.cu",
+                                replaces="src/repro/kernels/sliding_window.py:139")
+    pattern = kbs.BlockSparsePattern.windowed(S, S, W, 128, 128)
+    mask = block_sparse_mask(pattern, dev)
+    rec = attention_row(
+        "block_sparse_attention hd256", f"windowed {W} B{B} S{S} H{H} hd{hd} block 128 bf16 "
+        f"(density {pattern.density():.3f})",
+        lambda a, b_, c: kbs.block_sparse_attention(a, b_, c, pattern),
+        lambda a, b_, c: kbs.block_sparse_attention_plain(a, b_, c, pattern),
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=mask),
+        q, k, v, "bfloat16", int(mask.sum()), 5)
+    entries, counts, _ = pattern.kernel_tiles(tile_q(S))
+    rec["bound_ms"] = max(rec["bound_ms"], 4 * (entries.size + counts.size + pattern.bitmap.size)
+                          / PEAK_BYTES * 1e3)
+    records[rec["name"]] = dict(rec, source="src/repro_torch/csrc/block_sparse_attn.cu",
+                                replaces="src/repro/kernels/block_sparse.py:214")
+    del q, k, v, band, mask
+
+    # -- flash at hd 256, a short prefill (S < 256 takes flash with the window)
+    B, S = 4, 200
+    sets = copies_past_l2(lambda: tuple(randn(B, S, H, hd, dtype=torch.bfloat16)
+                                        for _ in range(3)), 4 * B * S * H * hd * 2)
+    rec = attention_row(
+        "flash_attention hd256", f"causal B{B} S{S} H{H} hd{hd} bf16",
+        lambda a, b_, c: kf.flash_attention(a, b_, c, causal=True, window=W),
+        lambda a, b_, c: kf.flash_attention_plain(a, b_, c, causal=True, window=W),
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True),
+        *sets[0], "bfloat16", pairs(S, W), 20, sets=sets)
+    records[rec["name"]] = dict(rec, source="src/repro_torch/csrc/flash_attn.cu",
+                                replaces="src/repro/kernels/flash_attention.py:120")
+    del sets
+
+    # -- hd 256 corners: ragged lengths, windows, a strided pattern; f32 bodies
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for S, window in ((300, None), (333, 50), (64, None)):
+            q, k, v = (randn(2, S, 3, 256, dtype=dtype) for _ in range(3))
+            out = kf.flash_attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            slack = None if dt == "float32" else p_rounding_bound(
+                lambda v_: kf.flash_attention_plain(q, k, v_, causal=True, window=window), v)
+            within_tol(f"flash hd256 B2 S{S} H3 window={window} {dt}", out,
+                       kf.flash_attention_plain(q, k, v, causal=True, window=window), dt,
+                       failures, slack)
+        for pattern in (kbs.BlockSparsePattern.windowed(256, 256, 40, 16, 16),
+                        kbs.BlockSparsePattern.strided(512, 512, local_blocks=2, stride=3,
+                                                       block_q=64, block_k=64)):
+            S = pattern.seq_q
+            q, k, v = (randn(2, S, 3, 256, dtype=dtype) for _ in range(3))
+            out = kbs.block_sparse_attention(q, k, v, pattern)
+            torch.cuda.synchronize()
+            slack = None if dt == "float32" else p_rounding_bound(
+                lambda v_: kbs.block_sparse_attention_plain(q, k, v_, pattern), v)
+            within_tol(f"block_sparse hd256 S{S} blocks {pattern.block_q} {dt}", out,
+                       kbs.block_sparse_attention_plain(q, k, v, pattern), dt, failures, slack)
+
+    # -- decode at the zoo's groups and head dims
+    for tag, shp in ZOO_DECODE.items():
+        B, L, KV, G, hd = (shp[k] for k in ("B", "L", "KV", "G", "hd"))
+        idx = torch.arange(L, device=dev)
+        if shp["int8_row"]:  # a ring: the second row wraps
+            pos = torch.tensor([300, 3 * L + 77, 0, L - 1], device=dev)[:B]
+        else:  # serve.py's batch mid-decode: 257 to 271 of 272 rows written
+            pos = torch.tensor([263, 270, 256, 271], device=dev)[:B]
+        slot = torch.remainder(pos, L)
+        age = torch.remainder(slot[:, None] - idx[None, :], L)
+        valid = age < torch.clamp(pos + 1, max=L)[:, None]
+
+        def decode_inputs(quant):
+            q_ = randn(B, KV, G, hd, dtype=torch.bfloat16)
+            k_, v_ = (randn(B, L, KV, hd, dtype=torch.bfloat16) for _ in range(2))
+            if not quant:
+                return (q_, k_, v_, valid, None, None)
+            (kq, ks), (vq, vs) = quantize_kv_ref(k_), quantize_kv_ref(v_)
+            return (q_, kq, vq, valid, ks, vs)
+
+        for counter, quant in (("decode_attention", False), ("decode_attention_int8", True)):
+            rec = decode_row(f"{counter} {tag}", B, L, KV, G, hd, valid, quant,
+                             lambda: decode_inputs(quant), failures)
+            if shp["int8_row"] or not quant:
+                records[rec["name"]] = dict(rec, counter=counter, arch=shp["arch"])
+
+    # -- decode edge cases at the new groups and head dims
+    cases = {"all-masked row": (3, 200, 1, 48, 128), "single live row": (3, 300, 1, 10, 256),
+             "L=37": (3, 37, 2, 12, 64), "L=1000": (3, 1000, 1, 48, 128),
+             "L=2047": (3, 2047, 1, 10, 256), "G=64": (2, 500, 2, 64, 256),
+             "G=9": (3, 260, 2, 9, 128), "G=1 hd256": (3, 130, 4, 1, 256)}
+    for case, (B, L, KV, G, hd) in cases.items():
+        pos = torch.tensor([17, 3 * L + 5, L // 2][:B], device=dev)
+        slot = torch.remainder(pos, L)
+        age = torch.remainder(slot[:, None] - torch.arange(L, device=dev)[None], L)
+        valid = age < torch.clamp(pos + 1, max=L)[:, None]
+        if case == "all-masked row":
+            valid[1] = False
+        if case == "single live row":
+            valid[:] = False
+            valid[0, 5] = valid[1, L - 1] = valid[2, L // 2] = True
+        for dt in ("bfloat16", "float32", "int8"):
+            ftype = torch.float32 if dt == "int8" else getattr(torch, dt)
+            q, k, v = (torch.randn(*s_, generator=gen, device=dev).to(ftype)
+                       for s_ in ((B, KV, G, hd), (B, L, KV, hd), (B, L, KV, hd)))
+            kw = {}
+            if dt == "int8":
+                (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+                kw = dict(k_scale=ks, v_scale=vs)
+            out = kd.decode_attention(q, k, v, valid, **kw)
+            torch.cuda.synchronize()
+            within_tol(f"decode wide {case} B{B} L{L} KV{KV} G{G} hd{hd} {dt} "
+                       f"(chunks of {kd.split_plan(B, KV, L)[0]})", out,
+                       kd.decode_attention_plain(q, k, v, valid, **kw),
+                       "float32" if ftype == torch.float32 else dt, failures)
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions at the zoo's shapes: "
+                             f"{failures}")
+    return records
+
+
 # ------------------------------------------------------------ phases 3-6
 QWEN = "qwen3-1.7b"
 # phase 3 bounds (bf16 at full width, random weights, 28 layers): the
@@ -584,6 +832,39 @@ def logits_vs_plain(label, a, b) -> None:
         raise AssertionError(f"{label}: kernel path disagrees with the plain path at full width")
 
 
+def prefill_decode_vs_plain(tag, cfg, params, dev, knobs, B=4, S=200, steps=16,
+                            cache_len=256) -> None:
+    """Prefill B x S + ``steps`` decode steps with each attention knob of
+    ``knobs`` against the plain attention path (``attn_kernel=None``),
+    teacher-forced on the first knob's greedy tokens."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    runs = {}
+    for knob in (*knobs, None):
+        c = dataclasses.replace(cfg, attn_kernel=knob)
+        logits, cache = T.prefill(params, {"tokens": tokens}, c, cache_len)
+        outs = [logits[:, -1].float()]
+        feed = runs[knobs[0]]["greedy"] if knob != knobs[0] else None
+        greedy = [torch.argmax(outs[-1], -1)]
+        for i in range(steps):
+            tok = (feed[i] if feed is not None else greedy[-1])[:, None]
+            logits, cache = T.decode_step(params, tok, cache, S + i, c)
+            outs.append(logits[:, 0].float())
+            greedy.append(torch.argmax(outs[-1], -1))
+        torch.cuda.synchronize()
+        runs[knob] = {"logits": torch.stack(outs), "greedy": greedy}
+        del cache, logits
+    for knob in knobs:
+        logits_vs_plain(f"{tag} {knob}: prefill {B}x{S} + {steps} decode steps",
+                        runs[knob]["logits"], runs[None]["logits"])
+    del runs
+    torch.cuda.empty_cache()
+
+
 def model_vs_plain(dev) -> None:
     """Full-width qwen3-1.7b: prefill + 16 decode steps with the flash and
     the block-sparse kernels against the plain attention path, teacher-forced
@@ -597,33 +878,15 @@ def model_vs_plain(dev) -> None:
     params = T.init_model(cfg, seed=0, device=dev)
     log(f"[3] {QWEN}: {T.param_count(cfg) / 1e9:.3f} B parameters in {cfg.dtype}, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    B, S, steps, cache_len = 4, 200, 16, 256
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
-    runs = {}
-    for knob in ("flash", "block_sparse", None):  # S = 200: block-sparse blocks of 8
-        c = dataclasses.replace(cfg, attn_kernel=knob)
-        logits, cache = T.prefill(params, {"tokens": tokens}, c, cache_len)
-        outs = [logits[:, -1].float()]
-        feed = runs["flash"]["greedy"] if knob != "flash" else None
-        greedy = [torch.argmax(outs[-1], -1)]
-        for i in range(steps):
-            tok = (feed[i] if feed is not None else greedy[-1])[:, None]
-            logits, cache = T.decode_step(params, tok, cache, S + i, c)
-            outs.append(logits[:, 0].float())
-            greedy.append(torch.argmax(outs[-1], -1))
-        torch.cuda.synchronize()
-        runs[knob] = {"logits": torch.stack(outs), "greedy": greedy}
-        del cache
-    for knob in ("flash", "block_sparse"):
-        logits_vs_plain(f"[3] {knob}: prefill {B}x{S} + {steps} decode steps",
-                        runs[knob]["logits"], runs[None]["logits"])
-    del params, runs
+    # S = 200: block-sparse blocks of 8
+    prefill_decode_vs_plain("[3]", cfg, params, dev, ("flash", "block_sparse"))
+    del params
     torch.cuda.empty_cache()
 
 
 def run_engine(label, cfg, params, dev, prompts, new_tokens, **engine_kw):
-    """Serve ``prompts`` through ServeEngine; returns (requests, seconds, ticks)."""
+    """Serve ``prompts`` through ServeEngine; returns (requests, seconds, ticks,
+    engine)."""
     import torch
 
     from repro_torch.serving import Request, ServeEngine
@@ -648,37 +911,38 @@ def run_engine(label, cfg, params, dev, prompts, new_tokens, **engine_kw):
         f"{secs / toks * 1e3:.2f} ms/token; stats {engine.stats()}")
     if done != len(reqs) or any(len(r.output) != new_tokens for r in reqs) or bad:
         raise AssertionError(f"{label}: not every request completed with valid tokens")
-    return reqs, secs, ticks
+    return reqs, secs, ticks, engine
 
 
-def long_logits_vs_plain(cfg, params, prompt, dev, cache_len: int, steps: int = 16) -> None:
-    """A long prompt through the model: windowed block-sparse prefill +
+def long_logits_vs_plain(cfg, params, prompt, dev, cache_len: int, steps: int = 16,
+                         knob: str = "block_sparse", tag: str = "[5]") -> None:
+    """A long prompt through the model: the ``knob`` prefill (windowed) +
     ``steps`` decode steps against the plain path (teacher-forced on the
-    block-sparse path's greedy tokens), over every prompt position.  The
-    plain path chunks queries by 1024 beyond 4096 tokens (as the
-    reference's), so the prompt length is a multiple of 1024."""
+    kernel path's greedy tokens), over every prompt position.  The plain
+    path chunks queries by 1024 beyond 4096 tokens (as the reference's), so
+    a longer prompt is a multiple of 1024."""
     import torch
 
     from repro_torch.models import transformer as T
 
     tokens = torch.tensor([prompt], device=dev)
     runs = {}
-    for knob in ("block_sparse", None):
-        c = dataclasses.replace(cfg, attn_kernel=knob)
+    for k in (knob, None):
+        c = dataclasses.replace(cfg, attn_kernel=k)
         logits, cache = T.prefill(params, {"tokens": tokens}, c, cache_len)
         outs = [logits[0]]
-        feed = runs["block_sparse"][1] if knob is None else None
+        feed = runs[knob][1] if k is None else None
         greedy = [torch.argmax(logits[:, -1:], -1)]
         for i in range(steps):
             tok = feed[i] if feed is not None else greedy[-1]
             logits, cache = T.decode_step(params, tok, cache, len(prompt) + i, c)
             outs.append(logits[0])
             greedy.append(torch.argmax(logits, -1))
-        runs[knob] = (torch.cat(outs).float(), greedy)
+        runs[k] = (torch.cat(outs).float(), greedy)
         del cache, logits
-    logits_vs_plain(f"[5] block_sparse: {len(prompt)}-token prefill (window "
-                    f"{cfg.long_context_window}) + {steps} decode steps",
-                    runs["block_sparse"][0], runs[None][0])
+    window = cfg.sliding_window if "local_attn" in cfg.layer_pattern else cfg.long_context_window
+    logits_vs_plain(f"{tag} {knob}: {len(prompt)}-token prefill (window {window}) + {steps} "
+                    f"decode steps", runs[knob][0], runs[None][0])
     del runs
     torch.cuda.empty_cache()
 
@@ -735,18 +999,18 @@ def main_path(dev) -> dict[str, int]:
     engine_kw = dict(max_slots=4, cache_len=1024, prompt_bucket=32)
 
     log("[4] ServeEngine at full width: 8 requests, prompts 17-600 tokens, 16 new tokens each")
-    plain, _, _ = run_engine("plain attention (reference)",
+    plain, *_ = run_engine("plain attention (reference)",
                              dataclasses.replace(cfg, attn_kernel=None), params, dev, prompts, 16,
                              **engine_kw)
-    (kern, _, _), fc = counted(4, ("flash_attention", "decode_attention"), lambda: run_engine(
+    (kern, *_), fc = counted(4, ("flash_attention", "decode_attention"), lambda: run_engine(
         "kernels, bf16 KV", cfg, params, dev, prompts, 16, **engine_kw))
     first_tokens_agree("flash", kern, plain)
     qcfg = dataclasses.replace(cfg, quantized_kv=True)
-    (qreqs, _, _), _ = counted(4, ("flash_attention", "decode_attention_int8"), lambda: run_engine(
+    (qreqs, *_), _ = counted(4, ("flash_attention", "decode_attention_int8"), lambda: run_engine(
         "kernels, int8 KV", qcfg, params, dev, prompts, 16, **engine_kw))
     log(f"[4] int8-KV first tokens equal to bf16-KV's: "
         f"{sum(a.output[0] == b.output[0] for a, b in zip(qreqs, kern))}/8")
-    (sreqs, _, _), sc = counted(4, ("block_sparse_attention", "decode_attention"),
+    (sreqs, *_), sc = counted(4, ("block_sparse_attention", "decode_attention"),
                                 lambda: run_engine("block-sparse prefill, bf16 KV", bcfg, params,
                                                    dev, prompts, 16, **engine_kw))
     first_tokens_agree("block_sparse", sreqs, plain)
@@ -1361,18 +1625,22 @@ def fleet_rate(util: float) -> float:
     return round(util * FLEET_SLOTS / lg.mean_request_tokens(), 4)
 
 
-def launches_per_forward(phase, label, counts, prefill_kernel, decode_kernel, prefills, decodes,
+def launches_per_forward(phase, label, counts, prefill_kernels, decode_kernel, prefills, decodes,
                          layers) -> None:
-    """Every prefill forward launched ``prefill_kernel`` once per layer, every
-    decode forward ``decode_kernel``, and no other attention kernel ran."""
-    want = {k: 0 for k in ATTENTION_KERNELS}
-    want[prefill_kernel] = layers * prefills
-    want[decode_kernel] = layers * decodes
-    got = {k: counts[k] for k in ATTENTION_KERNELS}
-    log(f"[{phase}] {label}: launches {got}; {layers} layers x ({prefills} prefill, {decodes} "
-        f"decode forwards) {'equal' if got == want else 'DIFFERENT'}")
-    if got != want or not prefills or not decodes:
-        raise AssertionError(f"phase {phase} {label}: launches {got} != {want}")
+    """Every prefill forward launched one of ``prefill_kernels`` once per
+    attention layer (their launches summed: flash and the sliding window
+    split a hybrid's prefills by length), every decode forward
+    ``decode_kernel``, and no other attention kernel ran."""
+    got = {k: counts[k] for k in ATTENTION_KERNELS if counts[k]}
+    prefill = sum(counts[k] for k in prefill_kernels)
+    others = [k for k in got if k not in prefill_kernels and k != decode_kernel]
+    ok = (prefill == layers * prefills and counts[decode_kernel] == layers * decodes
+          and not others and prefills and decodes)
+    log(f"[{phase}] {label}: launches {got}; {layers} attention layers x ({prefills} prefill, "
+        f"{decodes} decode forwards) {'equal' if ok else 'DIFFERENT'}")
+    if not ok:
+        raise AssertionError(f"phase {phase} {label}: launches {got} != {layers} x "
+                             f"({prefills} prefill of {prefill_kernels}, {decodes} decode)")
 
 
 def served_vs_plain(label, served, cfg, params, dev) -> None:
@@ -1463,7 +1731,7 @@ def fleet_full_width(dev) -> dict[str, int]:
             f"{f['slot_occupancy']:.3f}, cache hit rate {f['cache_hit_rate']:.3f}; "
             f"{res['offered']} offered, {f['completed']} completed, {f['rejected']} rejected, "
             f"{f['shed']} shed in {res['ticks']} ticks, {res['wall_seconds']:.1f} s")
-        launches_per_forward(11, label, counts, pk, dk, res["prefill_forwards"],
+        launches_per_forward(11, label, counts, (pk,), dk, res["prefill_forwards"],
                              res["decode_forwards"], layers)
         if f["completed"] + f["rejected"] + f["shed"] != res["offered"] or not f["completed"]:
             raise AssertionError(f"phase 11 {label}: requests lost or none completed")
@@ -1534,7 +1802,7 @@ def fleet_full_width(dev) -> dict[str, int]:
     log(f"[11] hot reload ({card}): {rep.offered} offered, {f['completed']} completed in "
         f"{rep.ticks} ticks; per node (step, reloads, torn files skipped, params version, "
         f"prefix-cache invalidations) {reload_state}; {f['tok_per_s']:.1f} tokens/s")
-    launches_per_forward(11, "hot reload", counts, "flash_attention", "decode_attention",
+    launches_per_forward(11, "hot reload", counts, ("flash_attention",), "decode_attention",
                          sum(n.engine.prefill_forwards for n in nodes),
                          sum(n.engine.decode_forwards for n in nodes), layers)
     bad = [t for n in nodes for r in n.requests for t in r.output
@@ -1597,10 +1865,220 @@ def train_and_serve(dev) -> dict[str, int]:
     return counts
 
 
+# ----------------------------------------------------------------- phase 13
+# the model zoo at full width, in the order run (the largest engine first)
+ZOO_ARCHS = ("granite-20b", "recurrentgemma-2b", "qwen3-4b", "command-r-35b")
+ZOO_FLEET_REQUESTS = 48
+FLASH_PREFILL = ("flash_attention", "sliding_window_attention")  # S < 256, S >= 256 windowed
+
+
+def attention_layers(cfg) -> int:
+    return sum(cfg.mixer_for_layer(i) != "rglru" for i in range(cfg.num_layers))
+
+
+def zoo_row(arch: str, counter: str) -> str:
+    """The kernels line's row whose shapes ``arch``'s launches of ``counter``
+    run: decode at the arch's row of ``ZOO_DECODE``, recurrentgemma-2b's
+    attention at hd 256, the other archs' attention at the qwen3-1.7b rows'
+    hd 128."""
+    if counter.startswith("decode"):
+        return next(f"{counter} {tag}" for tag, shp in ZOO_DECODE.items() if shp["arch"] == arch)
+    return f"{counter} hd256" if arch == "recurrentgemma-2b" else counter
+
+
+def zoo_engines(arch, cfg, params, dev, lens, cache_len, total) -> None:
+    """ServeEngine with plain attention, flash, flash + int8 KV and
+    block-sparse prefill on 8 requests (16 new tokens each): first tokens
+    against the plain engine's, launches against the forwards."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    layers = attention_layers(cfg)
+    rng = random.Random(len(arch))
+    pool = {}
+    prompts = [pool.setdefault(n, [rng.randrange(cfg.vocab_size) for _ in range(n)])
+               for n in lens]
+    kw = dict(max_slots=4, cache_len=cache_len, prompt_bucket=32)
+    log(f"[13] {arch} ServeEngine: 8 requests, prompts {lens}, 16 new tokens, 4 slots x "
+        f"{cache_len}-token cache")
+    plain, *_ = run_engine("plain attention (reference)", cfg, params, dev, prompts, 16, **kw)
+    runs = (("flash", {"attn_kernel": "flash"}, FLASH_PREFILL, "decode_attention"),
+            ("flash, int8 KV", {"attn_kernel": "flash", "quantized_kv": True}, FLASH_PREFILL,
+             "decode_attention_int8"),
+            ("block_sparse", {"attn_kernel": "block_sparse"}, ("block_sparse_attention",),
+             "decode_attention"))
+    for label, over, pks, dk in runs:
+        _build.reset_launch_counts()
+        reqs, _, _, eng = run_engine(label, dataclasses.replace(cfg, **over), params, dev,
+                                     prompts, 16, **kw)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        launches_per_forward(13, f"{arch} engine {label}", counts, pks, dk,
+                             eng.prefill_forwards, eng.decode_forwards, layers)
+        firsts = sum(a.output[0] == b.output[0] for a, b in zip(reqs, plain))
+        same = sum(a.output == b.output for a, b in zip(reqs, plain))
+        log(f"[13] {arch} {label}: first tokens equal to the plain engine's {firsts}/8, whole "
+            f"outputs {same}/8 (bound: first tokens >= 6/8)")
+        if firsts < 6:
+            raise AssertionError(f"[13] {arch} {label} engine disagrees with the plain engine")
+    torch.cuda.empty_cache()
+
+
+def zoo_fleet(arch, layers, dev, total) -> None:
+    """``serve.py --fleet 2`` at utilization 0.8 with flash, and its
+    --no-fastpath twin: tick fields equal, launches against the forwards."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--fleet", str(FLEET_NODES), "--slots", str(FLEET_SLOTS),
+            "--prompts", "zipf", "--prompt-pool", "64", "--prompt-len", "512", "--gen", "32",
+            "--cache-len", "1024", "--requests", str(ZOO_FLEET_REQUESTS),
+            "--rate", str(fleet_rate(0.8))]
+    out = {}
+    for label, extra in (("flash", []), ("flash --no-fastpath", ["--no-fastpath"])):
+        log(f"[13] launch/serve.py {' '.join(argv + extra)} (attn_kernel='flash')")
+        _build.reset_launch_counts()
+        res = serve.main(argv + extra, config_overrides={"attn_kernel": "flash"})
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        f = res["metrics"]
+        log(f"[13] {arch} fleet {label}: {f['tok_per_s']:.1f} tokens/s, "
+            f"{f['per_token_ms']:.2f} ms/token, TTFT p50/p99 {f['p50_ttft_ms']:.1f}/"
+            f"{f['p99_ttft_ms']:.1f} ms ({f['p50_ttft_ticks']:.0f}/{f['p99_ttft_ticks']:.0f} "
+            f"ticks); {res['offered']} offered, {f['completed']} completed, {f['rejected']} "
+            f"rejected in {res['ticks']} ticks, {res['wall_seconds']:.1f} s")
+        launches_per_forward(13, f"{arch} fleet {label}", counts, FLASH_PREFILL,
+                             "decode_attention", res["prefill_forwards"], res["decode_forwards"],
+                             layers)
+        if f["completed"] + f["rejected"] + f["shed"] != res["offered"] or not f["completed"]:
+            raise AssertionError(f"[13] {arch} fleet {label}: requests lost or none completed")
+        out[label] = res
+    fast, twin = out["flash"], out["flash --no-fastpath"]
+    same = {k: (fast["metrics"][k], twin["metrics"][k]) for k in TICK_FIELDS}
+    same["ticks"] = (fast["ticks"], twin["ticks"])
+    equal = all(a == b for a, b in same.values())
+    log(f"[13] {arch} --no-fastpath twin, tick fields (fast, twin): {same}: "
+        f"{'equal' if equal else 'DIFFERENT'}")
+    if not equal:
+        raise AssertionError(f"[13] {arch}: the --no-fastpath twin's tick fields differ")
+
+
+def zoo_serve_batch(arch, B, dev, total) -> None:
+    """``serve.py --arch <arch> --batch B --prompt-len 256 --gen 16`` with
+    flash: launches = layers x (1 prefill, 15 decode forwards); then the
+    same weights and prompt (serve.py's seeded generator) through the plain
+    path: the served tokens against the plain argmax on their own prefix
+    (>= 3/4) and the flash prefill's logits over that sequence against the
+    plain prefill's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    S, gen_n = 256, 16
+    cfg = get_config(arch)
+    layers = attention_layers(cfg)
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(S), "--gen", str(gen_n)]
+    log(f"[13] launch/serve.py {' '.join(argv)} (attn_kernel='flash')")
+    _build.reset_launch_counts()
+    metrics = serve.main(argv, config_overrides={"attn_kernel": "flash"})
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for k, v in counts.items():
+        total[k] += v
+    log(f"[13] {arch} serve.py: per-token {metrics['per_token_ms']:.2f} ms, prefill "
+        f"{metrics['prefill_seconds']:.3f} s")
+    launches_per_forward(13, f"{arch} serve.py", counts, FLASH_PREFILL, "decode_attention", 1,
+                         gen_n - 1, layers)
+    torch.cuda.empty_cache()
+    # serve.py's weights and prompt: its --seed 0 generator draws the weights, then the tokens
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_model(cfg, generator=g, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    served = torch.tensor(metrics["tokens"], device=dev)
+    seq = torch.cat([prompt, served[:, :-1]], dim=1)
+    with torch.no_grad():
+        plain, _ = T.prefill(params, {"tokens": seq}, cfg, cache_len=seq.shape[1])
+        want = torch.argmax(plain[:, S - 1:], -1)
+        flash, _ = T.prefill(params, {"tokens": seq},
+                             dataclasses.replace(cfg, attn_kernel="flash"), cache_len=seq.shape[1])
+    share = float((want == served).float().mean())
+    log(f"[13] {arch} serve.py: served tokens equal to the plain argmax on their own prefix "
+        f"{int((want == served).sum())}/{served.numel()} = {share:.3f} (bound >= 0.75); first "
+        f"tokens {int((want[:, 0] == served[:, 0]).sum())}/{B}")
+    logits_vs_plain(f"[13] {arch} flash prefill over the served sequence",
+                    flash[:, S - 1:].float(), plain[:, S - 1:].float())
+    if share < 0.75:
+        raise AssertionError(f"[13] {arch}: served tokens disagree with the plain path")
+    del params, plain, flash
+
+
+def model_zoo(dev) -> dict[str, dict[str, int]]:
+    """Phase 13: granite-20b, recurrentgemma-2b, qwen3-4b and command-r-35b at
+    full width (random bf16 weights from a seeded generator, one model on the
+    card at a time).  Returns each arch's kernel launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+
+    card = gpu_name_and_limit()
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    out = {}
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        total = {name: 0 for name in _build.COUNTERS}
+        cfg = get_config(arch)
+        layers = attention_layers(cfg)
+        log(f"[13] {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters in {cfg.dtype}, "
+            f"{cfg.num_layers} layers ({layers} attention), hd {cfg.hd}, "
+            f"{cfg.num_heads // cfg.num_kv_heads} query heads per kv head")
+        if arch in ("granite-20b", "recurrentgemma-2b"):
+            params = T.init_model(cfg, seed=0, device=dev)
+            prefill_decode_vs_plain(f"[13] {arch}", cfg, params, dev, ("flash", "block_sparse"))
+            if arch == "granite-20b":
+                zoo_engines(arch, cfg, params, dev, [17, 600, 130, 333, 17, 480, 64, 251], 1024,
+                            total)
+            else:
+                # exact-length prefill: lengths that are multiples of 8, so the
+                # block-sparse prefill finds a block that divides each; the
+                # 2048-row rings of the local layers wrap for 2432 and 3000
+                zoo_engines(arch, cfg, params, dev, [24, 2432, 136, 640, 24, 3000, 64, 1024],
+                            4096, total)
+                rng = random.Random(7)
+                prompt = [rng.randrange(cfg.vocab_size) for _ in range(4096)]
+                for knob in ("flash", "block_sparse"):
+                    long_logits_vs_plain(cfg, params, prompt, dev, 4096 + 32, knob=knob,
+                                         tag="[13] recurrentgemma-2b")
+            del params
+            torch.cuda.empty_cache()
+            zoo_fleet(arch, layers, dev, total)
+        else:
+            zoo_serve_batch(arch, 4 if arch == "qwen3-4b" else 2, dev, total)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[13] {arch} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
+            f"{capacity / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s; launches "
+            f"{ {k: v for k, v in total.items() if v} }")
+        out[arch] = total
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1630,36 +2108,50 @@ def main(argv=None) -> int:
                 log(f"[1]   {name}: {line.strip()}")
     attention_sass()
 
-    records = {}
-    if 2 in phases:
+    def timed(phase, fn):
+        """Run one phase; log its seconds on the host clock."""
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[{phase}] phase took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    def kernels():
         log("[2] kernels against their plain versions")
-        records = check_kernels(dev)
-        records.update(check_block_sparse(dev))
-        records.update(check_gossip_kernels(dev))
-        records.update(check_block_topk(dev))
+        out = check_kernels(dev)
+        for check in (check_block_sparse, check_wide_shapes, check_gossip_kernels,
+                      check_block_topk):
+            out.update(check(dev))
+        return out
+
+    records = timed(2, kernels) if 2 in phases else {}
     if 3 in phases:
-        model_vs_plain(dev)
+        timed(3, lambda: model_vs_plain(dev))
     launches = {}  # from the main paths' own runs only; null when they did not run
     if phases & {4, 5, 6}:
-        serving = main_path(dev)
+        serving = timed("4-6", lambda: main_path(dev))
         launches.update({k: serving[k] for k in SERVING_KERNELS})
     if 7 in phases:
-        profile_decode(dev)
+        timed(7, lambda: profile_decode(dev))
     if 8 in phases:
-        round_full_width(dev)
+        timed(8, lambda: round_full_width(dev))
     if 9 in phases:
-        training = train_full_width(dev)
+        training = timed(9, lambda: train_full_width(dev))
         launches.update({k: training[k] for k in GOSSIP_KERNELS})
     if 10 in phases:
-        quickstart(dev)
+        timed(10, lambda: quickstart(dev))
     if 11 in phases:
-        fleet = fleet_full_width(dev)
+        fleet = timed(11, lambda: fleet_full_width(dev))
         for k in SERVING_KERNELS:
             launches[k] = launches.get(k, 0) + fleet[k]
     if 12 in phases:
-        served = train_and_serve(dev)
+        served = timed(12, lambda: train_and_serve(dev))
         for k in ("fused_encode", "fused_mix"):
             launches[k] = launches.get(k, 0) + served[k]
+    if 13 in phases:
+        for arch, counts in timed(13, lambda: model_zoo(dev)).items():
+            for k in SERVING_KERNELS:
+                row = zoo_row(arch, k)
+                launches[row] = launches.get(row, 0) + counts[k]
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

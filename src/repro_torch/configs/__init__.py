@@ -21,21 +21,24 @@ ARCHS = (
 )
 
 #: architectures with a config module (and a model path) in the port
-PORTED = ("qwen3_1_7b",)
+PORTED = ("qwen3_1_7b", "qwen3_4b", "granite_20b", "command_r_35b", "recurrentgemma_2b")
+
+#: the name each architecture goes by (``--arch``)
+NAMES = {
+    "internvl2_2b": "internvl2-2b",
+    "mamba2_1_3b": "mamba2-1.3b",
+    "qwen3_1_7b": "qwen3-1.7b",
+    "deepseek_moe_16b": "deepseek-moe-16b",
+    "whisper_small": "whisper-small",
+    "llama4_scout_17b_a16e": "llama4-scout-17b-a16e",
+    "command_r_35b": "command-r-35b",
+    "recurrentgemma_2b": "recurrentgemma-2b",
+    "qwen3_4b": "qwen3-4b",
+    "granite_20b": "granite-20b",
+}
 
 _ALIASES = {name.replace("_", "-"): name for name in ARCHS}
-_ALIASES.update({
-    "internvl2-2b": "internvl2_2b",
-    "mamba2-1.3b": "mamba2_1_3b",
-    "qwen3-1.7b": "qwen3_1_7b",
-    "deepseek-moe-16b": "deepseek_moe_16b",
-    "whisper-small": "whisper_small",
-    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
-    "command-r-35b": "command_r_35b",
-    "recurrentgemma-2b": "recurrentgemma_2b",
-    "qwen3-4b": "qwen3_4b",
-    "granite-20b": "granite_20b",
-})
+_ALIASES.update({name: key for key, name in NAMES.items()})
 
 
 def get_config(name: str):
@@ -45,10 +48,15 @@ def get_config(name: str):
     if key not in PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported to repro_torch; see ROADMAP.md "
-            f"(ported: {', '.join(PORTED)})"
+            f"(ported: {', '.join(NAMES[k] for k in PORTED)})"
         )
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
 
 
 def list_archs() -> tuple[str, ...]:
-    return tuple(n.replace("_", "-") for n in ARCHS)
+    return tuple(NAMES[n] for n in ARCHS)
+
+
+def waiting() -> tuple[str, ...]:
+    """Names of the architectures not yet ported."""
+    return tuple(NAMES[n] for n in ARCHS if n not in PORTED)

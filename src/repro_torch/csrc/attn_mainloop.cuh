@@ -27,7 +27,11 @@
 //     head) as two consumer warpgroups of 64 rows (64 rows, one warpgroup,
 //     when Sq <= 64); S = Q.K^T and O += P.V are wgmma.m64nNk16 with bf16
 //     operands and f32 accumulators (Q, K, V from shared memory, P from
-//     registers); kv tiles are 128 keys;
+//     registers); kv tiles are 128 keys; at hd 256 a CTA is one 64-row
+//     consumer warpgroup (two per 128-row query tile) and each kv tile
+//     arrives as two 64-key stages (S = Q.K^T on wgmma.m64n64k16, O += P.V
+//     on m64n256k16), so Q and a 2-stage ring fit in 160 KB and the f32
+//     output in 128 registers a thread;
 //   * the softmax runs on the S accumulator in registers: the scale is
 //     applied in f32 to the scores (with log2(e) folded in, for exp2f),
 //     row max and sum by quad shuffles, P rounded once to bf16 for the PV
@@ -393,6 +397,42 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 256] += A[64 x 16] * B[16 x 256], A in registers (bf16 pairs), B N-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+        ACC8(32), ACC8(40), ACC8(48), ACC8(56),
+        ACC8(64), ACC8(72), ACC8(80), ACC8(88),
+        ACC8(96), ACC8(104), ACC8(112), ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs), B N-major
 // (transposed) in shared memory
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -428,26 +468,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (HD == 256) wgmma_rs_n256(o, a, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
   else wgmma_rs_n64(o, a, db);
+}
+
+// S (+)= Q K^T over 16 of the head dim, for a stage of KT keys
+template <int KT>
+__device__ __forceinline__ void wgmma_qk(float (&s)[KT / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (KT == 128) wgmma_ss_n128(s, da, db, accumulate);
+  else wgmma_ss_n64(s, da, db, accumulate);
 }
 
 }  // namespace sm90
 
 // Shared-memory plan of the bf16 body: Q [HD/64][BM][64], then STAGES x
-// (K [HD/64][128][64], V [HD/64][128][64]), each 64-column half a run of
-// 128-byte swizzled rows; then the mbarriers.
+// (K [HD/64][KT][64], V [HD/64][KT][64]), each 64-column half a run of
+// 128-byte swizzled rows; then the mbarriers.  A stage holds KT keys: the
+// whole 128-key tile, or at hd 256 half of it (a 128-key stage would need
+// 320 KB with Q, and a 64 x 256 f32 output already takes 128 registers a
+// thread), so the schedule's tiles stay 128 keys wide on every head dim.
 template <int HD, int NWG>
 struct Bf16Plan {
   static constexpr int BM = 64 * NWG;
+  static constexpr int KT = HD == 256 ? 64 : TILE_K;  // keys per stage
+  static constexpr int SUBS = TILE_K / KT;            // stages per kv tile
   static constexpr int HALVES = HD / 64;
   static constexpr uint32_t Q_BYTES = HALVES * BM * 128;
-  static constexpr uint32_t KV_BYTES = HALVES * TILE_K * 128;  // K or V, one stage
+  static constexpr uint32_t KV_BYTES = HALVES * KT * 128;  // K or V, one stage
   static constexpr uint32_t BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
   static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
   static constexpr int THREADS = 128 * (NWG + 1);
 };
 
+// A CTA owns BM query rows: a whole query tile of the schedule (tile_q ==
+// BM), or at hd 256 (one 64-row warpgroup) one of the tile_q / 64 parts of
+// it, which all walk the tile's kv schedule.
 template <int HD, int NWG, typename Sched>
 __global__ void __launch_bounds__(Bf16Plan<HD, NWG>::THREADS, 1)
 attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -456,6 +513,7 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   using namespace sm90;
   using P = Bf16Plan<HD, NWG>;
   constexpr int BM = P::BM;
+  constexpr int KT = P::KT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -467,8 +525,11 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
-  const int n = sched.count(qt);
+  const int parts = sched.tile_q / BM;
+  const int qt = gridDim.y / parts - 1 - blockIdx.y / parts;  // heaviest tiles first
+  const int q0 = qt * sched.tile_q + (blockIdx.y % parts) * BM;
+  if (q0 >= sched.Sq) return;
+  const int n = sched.count(qt) * P::SUBS;  // stages to walk
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -488,16 +549,17 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       mbar_expect_tx(bar_q, P::Q_BYTES);
 #pragma unroll
       for (int hh = 0; hh < P::HALVES; ++hh)
-        tma_load(sQ + hh * BM * 128, &qmap, bar_q, 64 * hh, h, qt * BM, b);
+        tma_load(sQ + hh * BM * 128, &qmap, bar_q, 64 * hh, h, q0, b);
       for (int i = 0; i < n; ++i) {
         const int st = i % STAGES;
-        const int k0 = sched.tile(qt, i).index * TILE_K;  // read before the wait hides it
+        // read before the wait hides it
+        const int k0 = sched.tile(qt, i / P::SUBS).index * TILE_K + (i % P::SUBS) * KT;
         if (i >= STAGES) mbar_wait(bar_empty(st), ((i / STAGES) - 1) & 1);
         mbar_expect_tx(bar_full(st), 2 * P::KV_BYTES);
 #pragma unroll
         for (int hh = 0; hh < P::HALVES; ++hh) {
-          tma_load(sK(st) + hh * TILE_K * 128, &kmap, bar_full(st), 64 * hh, h, k0, b);
-          tma_load(sV(st) + hh * TILE_K * 128, &vmap, bar_full(st), 64 * hh, h, k0, b);
+          tma_load(sK(st) + hh * KT * 128, &kmap, bar_full(st), 64 * hh, h, k0, b);
+          tma_load(sV(st) + hh * KT * 128, &vmap, bar_full(st), 64 * hh, h, k0, b);
         }
       }
     }
@@ -508,7 +570,7 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     const int warp = tid / 32, lane = tid % 32;
     // accumulator layout: thread holds rows r_a = 16*warp + lane/4 and
     // r_a + 8 of its warpgroup's 64, columns 8*j + 2*(lane%4) + {0, 1}
-    const int q_a = qt * BM + 64 * wg + 16 * warp + lane / 4;
+    const int q_a = q0 + 64 * wg + 16 * warp + lane / 4;
     const int q_b = q_a + 8;
     const int col = 2 * (lane % 4);
     const uint32_t q_wg = sQ + wg * 64 * 128;
@@ -521,18 +583,18 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     mbar_wait(bar_q, 0);
     for (int i = 0; i < n; ++i) {
       const int st = i % STAGES;
-      const KvTile t = sched.tile(qt, i);
+      const KvTile t = sched.tile(qt, i / P::SUBS);
       mbar_wait(bar_full(st), (i / STAGES) & 1);
 
       // S = Q K^T over the head dim, 16 at a time
-      float s[TILE_K / 2];
+      float s[KT / 2];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the half
         const uint64_t da = smem_desc(q_wg + (kk / 4) * BM * 128 + off, 16, 1024);
-        const uint64_t db = smem_desc(sK(st) + (kk / 4) * TILE_K * 128 + off, 16, 1024);
-        wgmma_ss_n128(s, da, db, kk > 0);
+        const uint64_t db = smem_desc(sK(st) + (kk / 4) * KT * 128 + off, 16, 1024);
+        wgmma_qk<KT>(s, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -540,18 +602,18 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
 
       // scale in f32 (log2 units), mask where the tile needs it
 #pragma unroll
-      for (int r = 0; r < TILE_K / 2; ++r) s[r] *= scale_log2;
-      const int k_base = t.index * TILE_K + col;
+      for (int r = 0; r < KT / 2; ++r) s[r] *= scale_log2;
+      const int k_base = t.index * TILE_K + (i % P::SUBS) * KT + col;
       if (t.mask == MASK_ELEM) {
 #pragma unroll
-        for (int r = 0; r < TILE_K / 2; ++r) {
+        for (int r = 0; r < KT / 2; ++r) {
           const int kp = k_base + 8 * (r / 4) + (r % 2);
           if (!elem_live((r % 4) < 2 ? q_a : q_b, kp, sched.Sk, sched.causal, sched.window))
             s[r] = NEG_INF;
         }
       } else if (t.mask == MASK_BLOCKS) {
 #pragma unroll
-        for (int r = 0; r < TILE_K / 2; ++r) {
+        for (int r = 0; r < KT / 2; ++r) {
           const int kp = k_base + 8 * (r / 4) + (r % 2);
           if (!sched.live((r % 4) < 2 ? q_a : q_b, kp)) s[r] = NEG_INF;
         }
@@ -560,7 +622,7 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       // online softmax: rows a (r % 4 < 2) and b, each spread over a quad
       float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int r = 0; r < TILE_K / 2; r += 4) {
+      for (int r = 0; r < KT / 2; r += 4) {
         mx_a = fmaxf(mx_a, fmaxf(s[r], s[r + 1]));
         mx_b = fmaxf(mx_b, fmaxf(s[r + 2], s[r + 3]));
       }
@@ -572,10 +634,10 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       const float alpha_a = exp2f(m_a - mx_a), alpha_b = exp2f(m_b - mx_b);
       m_a = mx_a;
       m_b = mx_b;
-      uint32_t p[TILE_K / 4];  // P in bf16 pairs: the A operand of the PV product
+      uint32_t p[KT / 4];  // P in bf16 pairs: the A operand of the PV product
       float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-      for (int r = 0; r < TILE_K / 2; r += 4) {
+      for (int r = 0; r < KT / 2; r += 4) {
         const float e0 = exp2f(s[r] - m_a), e1 = exp2f(s[r + 1] - m_a);
         const float e2 = exp2f(s[r + 2] - m_b), e3 = exp2f(s[r + 3] - m_b);
         rs_a += e0 + e1;
@@ -592,9 +654,9 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       pin(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TILE_K / 16; ++kk) {
+      for (int kk = 0; kk < KT / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-        const uint64_t db = smem_desc(sV(st) + kk * 16 * 128, TILE_K * 128, 1024);
+        const uint64_t db = smem_desc(sV(st) + kk * 16 * 128, KT * 128, 1024);
         wgmma_pv<HD>(acc, a, db);
       }
       wgmma_commit();
@@ -672,14 +734,15 @@ cudaError_t launch_bf16_wg(const void* q, const void* k, const void* v, void* o,
   using P = Bf16Plan<HD, NWG>;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, B, sched.Sq, H, HD, qs, P::BM) ||
-      !make_map(&km, k, B, sched.Sk, H, HD, ks, TILE_K) ||
-      !make_map(&vm, v, B, sched.Sk, H, HD, vs, TILE_K))
+      !make_map(&km, k, B, sched.Sk, H, HD, ks, P::KT) ||
+      !make_map(&vm, v, B, sched.Sk, H, HD, vs, P::KT))
     return cudaErrorInvalidValue;
   auto kern = attn_fwd_bf16<HD, NWG, Sched>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (sched.Sq + P::BM - 1) / P::BM);
+  const int n_qt = (sched.Sq + sched.tile_q - 1) / sched.tile_q;
+  const dim3 grid(B * H, n_qt * (sched.tile_q / P::BM));
   kern<<<grid, P::THREADS, P::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), H, os,
                                               scale * LOG2E, sched);
   return cudaGetLastError();
@@ -689,9 +752,15 @@ template <int HD, typename Sched>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                         Strides qs, Strides ks, Strides vs, Strides os, float scale,
                         const Sched& sched, cudaStream_t stream) {
-  if (sched.tile_q == 64)
+  // hd 256: one consumer warpgroup (its 64 x 256 f32 output fills the
+  // registers), tile_q / 64 CTAs per query tile
+  if constexpr (HD == 256) {
     return launch_bf16_wg<HD, 1>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
-  return launch_bf16_wg<HD, 2>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
+  } else {
+    if (sched.tile_q == 64)
+      return launch_bf16_wg<HD, 1>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
+    return launch_bf16_wg<HD, 2>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
+  }
 }
 
 // dtype (DT_F32 / DT_BF16) and head dim dispatch of both bodies
@@ -707,6 +776,10 @@ cudaError_t launch_attention(int dtype, int hd, const void* q, const void* k, co
     return launch_bf16<128>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, st);
   if (dtype == DT_BF16 && hd == 64)
     return launch_bf16<64>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, st);
+  if (dtype == DT_F32 && hd == 256)
+    return launch_f32<256>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, st);
+  if (dtype == DT_BF16 && hd == 256)
+    return launch_bf16<256>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, st);
   return cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,10 @@ variant counts its launches separately.
 The kernel cuts L into chunks of whole 64-row tiles (:func:`split_plan`), one
 block per (chunk, kv head, batch row); tiles with no live row are skipped
 and each chunk leaves an f32 partial ``(m, l, acc)`` that the last of its
-row's blocks to finish combines.  :func:`decode_attention_split` runs that plan on
+row's blocks to finish combines.  Head dims 64, 128 and 256 and 1 to 64
+query heads per kv head: past 2 heads, or at hd 256, a wider body (its K/V
+tiles staged in shared memory, one warp per group of heads) runs the same
+plan.  :func:`decode_attention_split` runs that plan on
 the host, for the CPU tests.
 """
 from __future__ import annotations
@@ -29,8 +32,10 @@ launches = _build.LaunchCounter("decode_attention")
 launches_int8 = _build.LaunchCounter("decode_attention_int8")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-_MAX_GROUP = 8
+_HEAD_DIMS = (64, 128, 256)
+#: query heads per kv head (``csrc/decode_attn.cu::MAX_GROUP``); past 2, or at
+#: hd 256, the kernel's wide body runs the same plan
+_MAX_GROUP = 64
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 #: cache rows per tile of the kernel; a chunk is a whole number of tiles
 TILE = 64
@@ -170,11 +175,10 @@ def _refuse(q, k, v, valid, k_scale, v_scale):
         raise ValueError("decode_attn K and V must start on a 16-byte boundary")
 
 
-_fn = None
+_FNS: dict[str, object] = {}
 
 
-def _launch(q, k, v, valid, scale, k_scale, v_scale):
-    global _fn
+def _launch(q, k, v, valid, scale, k_scale, v_scale, symbol="repro_decode_attn"):
     quantized = k_scale is not None
     dev = q.device
     # one pass over what the kernel needs; the detailed checks name the fault
@@ -205,8 +209,9 @@ def _launch(q, k, v, valid, scale, k_scale, v_scale):
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, counts = _workspace(dev, stream, n_part * (hd + 2), B * KV)
     out = torch.empty_like(q)
-    if _fn is None:
-        _fn = _build.function("decode_attn", "repro_decode_attn", _ARGTYPES)
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = _FNS[symbol] = _build.function("decode_attn", symbol, _ARGTYPES)
     acc_ptr = part.data_ptr()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
             k_scale.data_ptr() if quantized else None,
@@ -214,10 +219,10 @@ def _launch(q, k, v, valid, scale, k_scale, v_scale):
             acc_ptr, acc_ptr + 4 * n_part * hd, counts.data_ptr(), _DTYPES[q.dtype],
             int(quantized), B, L, KV, G, hd, chunk, float(scale), stream)
     if torch.cuda.current_device() == dev.index:
-        err = _fn(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(dev):
-            err = _fn(*args)
+            err = fn(*args)
     _build.raise_on_error(err, "decode_attn")
     (launches_int8 if quantized else launches).add()
     return out
@@ -233,3 +238,13 @@ def decode_attention(q, k, v, valid, *, scale=None, k_scale=None, v_scale=None):
         return decode_attention_plain(q, k, v, valid, scale=scale, k_scale=k_scale,
                                       v_scale=v_scale)
     return _launch(q.contiguous(), k, v, valid, scale, k_scale, v_scale)
+
+
+def decode_attention_wide_body(q, k, v, valid, *, scale=None, k_scale=None, v_scale=None):
+    """The kernel's wide body at any shape the kernel takes, also where the
+    split body runs (hd 64 / 128 with at most 2 query heads per kv head): for
+    timing the two bodies on the same inputs.  CUDA tensors only."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    return _launch(q.contiguous(), k, v, valid, scale, k_scale, v_scale,
+                   "repro_decode_attn_wide")

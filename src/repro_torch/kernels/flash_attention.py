@@ -12,8 +12,9 @@ Layout: q, k, v are ``[B, S, H, hd]`` with kv heads already repeated to H
 TMA tensor maps over the same view) and masks ragged lengths itself, so
 nothing is folded, padded or copied.
 
-bf16 runs on the tensor cores and rounds each softmax probability to bf16
-once before the PV product, which the plain version (f32 throughout) does
+bf16 runs on the tensor cores (head dims 64, 128 and 256; at 256 each
+128-key tile arrives as two 64-key stages) and rounds each softmax
+probability to bf16 once before the PV product, which the plain version (f32 throughout) does
 not: the two differ by at most ``ref.p_rounding_bound`` per element beyond
 the output's own rounding.  f32 runs on the CUDA cores in f32.
 """
@@ -30,7 +31,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 launches = _build.LaunchCounter("flash_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 #: keys per kv tile of both kernels (``csrc/attn_mainloop.cuh::TILE_K``)
 TILE_K = 128
 #: how the kernels mask a kv tile (``csrc/attn_mainloop.cuh::MASK_*``): not at

@@ -6,6 +6,9 @@ decode on the consensus model, or a serving fleet.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --reduced --device cpu                         # plain CPU path
 
+``--arch`` takes qwen3-1.7b, qwen3-4b, granite-20b, command-r-35b and the
+RG-LRU hybrid recurrentgemma-2b (``--help`` lists the archs that wait).
+
 ``--fleet N`` serves as a fleet of N nodes: continuous-batching engines
 behind bounded-queue admission control, fed by the seeded Poisson/Zipf load
 generator, reporting p50/p95/p99 TTFT in ticks and ms, tokens/s, queue
@@ -35,6 +38,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import latest_step, restore_jax_params, step_path
+from repro_torch import configs
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as st
@@ -59,7 +63,10 @@ def _resolve_restore(path: str) -> str:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", required=True)
+    ported = ", ".join(configs.NAMES[n] for n in configs.PORTED)
+    ap.add_argument("--arch", required=True,
+                    help=f"model config; ported: {ported}; not yet ported (see ROADMAP.md): "
+                         f"{', '.join(configs.waiting())}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -3,7 +3,7 @@
 
 One ``ModelConfig`` describes any family of the reference: dense GQA
 decoders, fine-grained MoE, Mamba2 SSD, RG-LRU hybrids, encoder-decoder and
-VLM backbones.  This slice of the port runs the dense and ``local_attn``
+VLM backbones.  The port runs the dense, ``local_attn`` and ``rglru``
 paths; the other families raise ``NotImplementedError`` in
 ``models/transformer.py``.
 """

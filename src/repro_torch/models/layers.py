@@ -30,8 +30,8 @@ QUERY_CHUNK = 1024
 # ---------------------------------------------------------------------- init
 def dense_init(gen, fan_in, shape, dtype, device):
     scale = 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * scale
-    return w.to(dtype)
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(scale).to(dtype)  # in place: one f32 temporary (8.4 GB for command-r's embed)
 
 
 # --------------------------------------------------------------------- norms

@@ -1,5 +1,5 @@
-"""Model assembly (PyTorch port of ``repro.models.transformer``), dense and
-``local_attn`` paths.
+"""Model assembly (PyTorch port of ``repro.models.transformer``): dense,
+``local_attn`` and ``rglru`` (the RG-LRU hybrid) layers.
 
 Parameters are plain dicts of tensors:
 
@@ -17,7 +17,9 @@ axis 0.
 Entry points: ``prefill(params, batch, cfg, cache_len) -> (logits, cache)``
 and ``decode_step(params, tokens, cache, pos, cfg) -> (logits, cache)``,
 where ``pos`` is an int or a ``[B]`` long tensor (one position per row, as
-the reference engine's per-slot vmap gives).  MoE, mamba2, rglru,
+the reference engine's per-slot vmap gives).  An ``rglru`` layer's cache
+is ``{h, conv}`` (f32 state, the conv's last inputs), also under
+``quantized_kv``, which quantizes attention caches only.  MoE, mamba2,
 encoder-decoder and VLM families raise ``NotImplementedError``.
 
 Training keeps the reference's own tree, which the decentralized trainer
@@ -48,6 +50,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -64,6 +67,14 @@ from repro_torch.models.layers import (
     init_norm,
     row_positions,
     unembed,
+)
+from repro_torch.models.rglru import (
+    CONV_WIDTH,
+    LAMB_INIT,
+    apply_rglru,
+    decode_rglru,
+    init_rglru,
+    init_rglru_cache,
 )
 
 __all__ = [
@@ -85,14 +96,16 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.num_experts > 0:
         unported.append("MoE")
     mixers = {cfg.mixer_for_layer(i) for i in range(cfg.num_layers)}
-    unported += sorted(mixers & {"mamba2", "rglru"})
+    unported += sorted(mixers & {"mamba2"})
     if cfg.is_encdec:
         unported.append("encoder-decoder")
     if cfg.num_patches > 0:
         unported.append("VLM")
     if unported:
+        ported = ", ".join(configs.NAMES[n] for n in configs.PORTED)
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not yet ported to repro_torch; see ROADMAP.md"
+            f"{cfg.name}: {', '.join(unported)} not yet ported to repro_torch; see ROADMAP.md "
+            f"(ported: {ported}; not yet: {', '.join(configs.waiting())})"
         )
 
 
@@ -112,8 +125,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | 
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     layers = []
-    for _ in range(cfg.num_layers):
-        layer = {"norm1": init_norm(cfg, dev), "mixer": init_attention(gen, cfg, dev)}
+    for i in range(cfg.num_layers):
+        mixer = init_rglru if cfg.mixer_for_layer(i) == "rglru" else init_attention
+        layer = {"norm1": init_norm(cfg, dev), "mixer": mixer(gen, cfg, dev)}
         if cfg.d_ff > 0:
             layer["norm2"] = init_norm(cfg, dev)
             layer["ffn"] = init_mlp(gen, cfg, dev)
@@ -124,19 +138,14 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | 
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameter count of the model ``init_model`` builds (no allocation)."""
-    _check_supported(cfg)
-    d, H, KV, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
-    norm = d * (2 if cfg.norm_type == "layernorm" else 1)
-    attn = d * H * hd + 2 * d * KV * hd + H * hd * d
-    if cfg.use_bias:
-        attn += H * hd + 2 * KV * hd + d
-    if cfg.qk_norm:
-        attn += 2 * hd
-    mlp = 0
-    if f > 0:
-        mlp = 3 * d * f if cfg.mlp_type == "swiglu" else 2 * d * f + (f + d if cfg.use_bias else 0)
-        mlp += norm
-    return cfg.vocab_size * d + norm + cfg.num_layers * (norm + attn + mlp)
+    total = 0
+
+    def add(shape, init):
+        nonlocal total
+        total += math.prod(shape)
+
+    _map_specs(_train_specs(cfg), add)
+    return total
 
 
 # ------------------------------------------------------------------- cache
@@ -152,10 +161,12 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device="cuda"):
     """Decode cache for ``length`` context: one dict per layer."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    return [
-        init_attn_cache(cfg, batch, _layer_cache_len(cfg, cfg.mixer_for_layer(i), length), dev)
-        for i in range(cfg.num_layers)
-    ]
+    cache = []
+    for i in range(cfg.num_layers):
+        kind = cfg.mixer_for_layer(i)
+        cache.append(init_rglru_cache(cfg, batch, dev) if kind == "rglru" else
+                     init_attn_cache(cfg, batch, _layer_cache_len(cfg, kind, length), dev))
+    return cache
 
 
 # ----------------------------------------------------------------- forward
@@ -174,7 +185,11 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     for i, (p, c) in enumerate(zip(params["layers"], cache)):
         kind = cfg.mixer_for_layer(i)
         h = apply_norm(p["norm1"], x)
-        y, _ = decode_attention(p["mixer"], h, c, pos, cfg, window=_decode_window(cfg, kind, c))
+        if kind == "rglru":
+            y, _ = decode_rglru(p["mixer"], h, c, cfg)
+        else:
+            y, _ = decode_attention(p["mixer"], h, c, pos, cfg,
+                                    window=_decode_window(cfg, kind, c))
         x = x + y
         if "ffn" in p:
             x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
@@ -213,7 +228,9 @@ def _store_prompt(c: dict, k: torch.Tensor, v: torch.Tensor) -> None:
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Full forward over the prompt that also returns a primed decode cache.
 
-    batch["tokens"]: [B, S <= cache_len].  Returns (logits [B, S, V], cache).
+    batch["tokens"]: [B, S <= cache_len].  Attention layers write the
+    prompt's K/V into their caches, recurrent layers their final state.
+    Returns (logits [B, S, V], cache).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -222,9 +239,15 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     for i, (p, c) in enumerate(zip(params["layers"], cache)):
         kind = cfg.mixer_for_layer(i)
         h = apply_norm(p["norm1"], x)
-        y, (k, v) = apply_attention(p["mixer"], h, cfg, causal=True,
-                                    window=_prefill_window(cfg, kind, cache_len), return_kv=True)
-        _store_prompt(c, k, v)
+        if kind == "rglru":  # the state after the last prompt token
+            y, state = apply_rglru(p["mixer"], h, cfg, return_state=True)
+            for name, t in state.items():
+                c[name].copy_(t)
+        else:
+            y, (k, v) = apply_attention(p["mixer"], h, cfg, causal=True,
+                                        window=_prefill_window(cfg, kind, cache_len),
+                                        return_kv=True)
+            _store_prompt(c, k, v)
         x = x + y
         if "ffn" in p:
             x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
@@ -289,8 +312,8 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
 
 
 # ------------------------------------------------------------- training
-def _layer_specs(cfg: ModelConfig) -> dict:
-    """One layer's parameters as (shape, fan_in | "ones" | "zeros")."""
+def _layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    """One layer's parameters as (shape, fan_in | "ones" | "zeros" | "lamb")."""
     d, H, KV, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
 
     def norm():
@@ -299,13 +322,19 @@ def _layer_specs(cfg: ModelConfig) -> dict:
             p["bias"] = ((d,), "zeros")
         return p
 
-    mixer = {"wq": ((d, H, hd), d), "wk": ((d, KV, hd), d), "wv": ((d, KV, hd), d),
-             "wo": ((H, hd, d), H * hd)}
-    if cfg.use_bias:
-        mixer.update(bq=((H, hd), "zeros"), bk=((KV, hd), "zeros"), bv=((KV, hd), "zeros"),
-                     bo=((d,), "zeros"))
-    if cfg.qk_norm:
-        mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
+    if kind == "rglru":
+        dr, W = cfg.rglru_width or d, CONV_WIDTH
+        mixer = {"w_gate_branch": ((d, dr), d), "w_in": ((d, dr), d), "conv_w": ((W, dr), W),
+                 "conv_b": ((dr,), "zeros"), "w_a": ((dr, dr), dr), "w_x": ((dr, dr), dr),
+                 "lamb": ((dr,), "lamb"), "w_out": ((dr, d), dr)}
+    else:
+        mixer = {"wq": ((d, H, hd), d), "wk": ((d, KV, hd), d), "wv": ((d, KV, hd), d),
+                 "wo": ((H, hd, d), H * hd)}
+        if cfg.use_bias:
+            mixer.update(bq=((H, hd), "zeros"), bk=((KV, hd), "zeros"),
+                         bv=((KV, hd), "zeros"), bo=((d,), "zeros"))
+        if cfg.qk_norm:
+            mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
     layer = {"norm1": norm(), "mixer": mixer}
     if f > 0:
         if cfg.mlp_type == "swiglu":
@@ -333,16 +362,22 @@ def _map_specs(tree, fn):
 def _train_specs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
     pre, nb, suf = _pattern_split(cfg)
-    layer = _layer_specs(cfg)
+    p_len = len(cfg.layer_pattern)
+
+    def layer(i):
+        return _layer_specs(cfg, cfg.mixer_for_layer(i))
+
     specs = {"embed": {"table": ((cfg.vocab_size, cfg.d_model), cfg.d_model)}}
     if pre:
-        specs["prefix"] = [layer] * pre
+        specs["prefix"] = [layer(i) for i in range(pre)]
     if nb:
-        stacked = _map_specs(layer, lambda shape, init: ((nb,) + shape, init))
-        specs["blocks"] = [stacked] * len(cfg.layer_pattern)
+        specs["blocks"] = [_map_specs(layer(pre + pos), lambda shape, init: ((nb,) + shape, init))
+                           for pos in range(p_len)]
     if suf:
-        specs["suffix"] = [layer] * suf
+        specs["suffix"] = [layer(pre + nb * p_len + s) for s in range(suf)]
     specs["final_norm"] = {"scale": ((cfg.d_model,), "ones")}
+    if cfg.norm_type == "layernorm":
+        specs["final_norm"]["bias"] = ((cfg.d_model,), "zeros")
     return specs
 
 
@@ -360,6 +395,8 @@ def init_train_params(cfg: ModelConfig, *, seed: int = 0,
             return torch.ones(shape, dtype=dt, device=dev)
         if init == "zeros":
             return torch.zeros(shape, dtype=dt, device=dev)
+        if init == "lamb":  # the RG-LRU's f32 decay parameter
+            return torch.full(shape, LAMB_INIT, dtype=torch.float32, device=dev)
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (w * (1.0 / math.sqrt(init))).to(dt)
 
@@ -369,14 +406,17 @@ def init_train_params(cfg: ModelConfig, *, seed: int = 0,
 def abstract_train_params(cfg: ModelConfig):
     """The training tree as shapes only (meta tensors, nothing allocated)."""
     dt = cfg.activation_dtype
-    return _map_specs(_train_specs(cfg),
-                      lambda shape, init: torch.empty(shape, dtype=dt, device="meta"))
+    return _map_specs(_train_specs(cfg), lambda shape, init: torch.empty(
+        shape, dtype=torch.float32 if init == "lamb" else dt, device="meta"))
 
 
 def _train_layer(p, x, cfg: ModelConfig, kind: str):
-    window = cfg.sliding_window if kind == "local_attn" else None
-    x = x + apply_attention(p["mixer"], apply_norm(p["norm1"], x), cfg, causal=True,
-                            window=window)
+    h = apply_norm(p["norm1"], x)
+    if kind == "rglru":
+        x = x + apply_rglru(p["mixer"], h, cfg)
+    else:
+        window = cfg.sliding_window if kind == "local_attn" else None
+        x = x + apply_attention(p["mixer"], h, cfg, causal=True, window=window)
     if "ffn" in p:
         x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
     return x

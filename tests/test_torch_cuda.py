@@ -85,6 +85,8 @@ def _assert_attention_close(out, ref, attend, v):
     (torch.float32, 200, None, 128), (torch.bfloat16, 512, None, 128),
     (torch.bfloat16, 300, 100, 128), (torch.float32, 77, 13, 64),
     (torch.bfloat16, 77, 13, 64), (torch.bfloat16, 40, None, 128), (torch.bfloat16, 1, None, 64),
+    (torch.bfloat16, 300, 100, 256), (torch.float32, 200, None, 256), (torch.bfloat16, 40, None, 256),
+    (torch.bfloat16, 129, None, 256),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, S, window, hd):
     g = torch.Generator(device=cuda).manual_seed(S)
@@ -131,6 +133,19 @@ def test_sliding_window_kernel_matches_plain(cuda, S, window, dtype):
     before = ksw.launches.count
     out = ksw.sliding_window_attention(q, k, v, window=window)
     assert ksw.launches.count == before + 1
+    _assert_attention_close(
+        out, ksw.sliding_window_attention_plain(q, k, v, window=window),
+        lambda v_: ksw.sliding_window_attention_plain(q, k, v_, window=window), v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(640, 256), (1100, 300)])
+def test_sliding_window_kernel_hd256(cuda, S, window, dtype):
+    """recurrentgemma-2b's head dim: each 128-key tile as two 64-key stages
+    (bf16), the f32 body at hd 256."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (_randn(g, 1, S, 2, 256, dtype=dtype, device=cuda) for _ in range(3))
+    out = ksw.sliding_window_attention(q, k, v, window=window)
     _assert_attention_close(
         out, ksw.sliding_window_attention_plain(q, k, v, window=window),
         lambda v_: ksw.sliding_window_attention_plain(q, k, v_, window=window), v)
@@ -196,6 +211,82 @@ def test_decode_split_kernel_edge_cases(cuda, case, dtype):
         torch.testing.assert_close(out[1].float(), mean.to(out.dtype).float(), **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("B,L,KV,G,hd", [(3, 1000, 1, 48, 128), (3, 2047, 1, 10, 256),
+                                         (3, 300, 2, 64, 256), (3, 37, 2, 9, 64),
+                                         (3, 130, 4, 1, 256), (3, 200, 1, 16, 128)])
+def test_decode_wide_kernel_matches_plain(cuda, B, L, KV, G, hd, dtype):
+    """Groups past 2 and hd 256 (the wide body): granite-20b's G 48,
+    recurrentgemma-2b's G 10 at hd 256 over a 2047-row ring, the G 64 and
+    G 1 corners, a row with no live position."""
+    q, k, v, valid = _decode_inputs(cuda, B=B, L=L, KV=KV, G=G, hd=hd)
+    valid[-1] = False
+    kw = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    elif dtype == "bfloat16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    counter = kd.launches_int8 if kw else kd.launches
+    before = counter.count
+    out = kd.decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    tol = BF16 if dtype == "bfloat16" else F32
+    torch.testing.assert_close(out.float(), kd.decode_attention_plain(q, k, v, valid, **kw).float(),
+                               **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("B,L,KV,G,hd", [(3, 1000, 8, 2, 128), (4, 272, 8, 4, 128),
+                                         (2, 272, 8, 8, 128), (3, 1000, 1, 48, 128)])
+def test_decode_kernel_repeats_exactly_across_interleaved_inputs(cuda, B, L, KV, G, hd, dtype):
+    """The combine reads the partials that its own call's blocks wrote: two
+    inputs of one shape alternate (so the scratch holds the other input's
+    partials when a call starts), and every result equals that input's first
+    bit for bit; the first ones agree with the plain version."""
+    runs = []
+    for seed in (0, 1):
+        rng = np.random.default_rng(seed)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+                   for s in ((B, KV, G, hd), (B, L, KV, hd), (B, L, KV, hd)))
+        valid = torch.from_numpy(rng.random((B, L)) < 0.9).to(cuda)
+        kw = {}
+        if dtype == "int8":
+            (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        elif dtype == "bfloat16":
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        first = kd.decode_attention(q, k, v, valid, **kw)
+        tol = BF16 if dtype == "bfloat16" else F32
+        torch.testing.assert_close(first.float(),
+                                   kd.decode_attention_plain(q, k, v, valid, **kw).float(), **tol)
+        runs.append(((q, k, v, valid), kw, first))
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(300):
+        for args, kw, first in runs:
+            differ += (kd.decode_attention(*args, **kw) != first).sum()
+    assert int(differ) == 0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_wide_body_matches_plain_where_the_split_body_runs(cuda, hd, dtype):
+    """The wide body forced at G 2 (timed against the split body in
+    chip_smoke.py's phase 2) gives the plain version's answer there too."""
+    q, k, v, valid = _decode_inputs(cuda, B=3, L=1024, KV=8, G=2, hd=hd)
+    kw = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = kd.decode_attention_wide_body(q, k, v, valid, **kw)
+    tol = BF16 if dtype == "bfloat16" else F32
+    torch.testing.assert_close(out.float(), kd.decode_attention_plain(q, k, v, valid, **kw).float(),
+                               **tol)
+
+
 def test_decode_split_kernel_matches_its_cpu_twin(cuda):
     q, k, v, valid, _ = _decode_case("L1000", "float32", cuda)
     valid[0, 100:700] = False  # whole dead tiles in a live row
@@ -245,7 +336,8 @@ def test_block_sparse_kernel_matches_plain(cuda, layout, block, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block_q,block_k,hd", [(8, 8, 64), (32, 8, 128), (8, 32, 64),
-                                                (128, 32, 128), (24, 40, 64)])
+                                                (128, 32, 128), (24, 40, 64), (64, 64, 256),
+                                                (24, 40, 256)])
 def test_block_sparse_kernel_uneven_blocks(cuda, block_q, block_k, hd, dtype):
     """block_q != block_k, blocks of 8, a head dim of 64, and blocks that are
     no power of two (24 rows, 40 keys: blocks straddling the kernel's 128-row
@@ -348,6 +440,53 @@ def test_engine_kernels_match_plain_engine(cuda, quantized_kv):
                           cache_len=32, prompt_bucket=8, device=cuda)
         eng.run(reqs)
         assert all(r.done for r in reqs) and eng.prefix_hits == 1
+        runs[knob] = [(r.output, r.admit_tick, r.finish_tick) for r in reqs]
+    assert runs["flash"] == runs[None] == runs["block_sparse"]
+
+
+def _zoo_reduced(arch):
+    """Reduced zoo configs in f32 at the kernels' new shapes: granite-20b with
+    12 query heads on its one kv head (the wide decode body at hd 64), the
+    hybrid at hd 256 (the hd-256 attention bodies and wide decode)."""
+    cfg = get_config(arch)
+    if arch == "granite-20b":
+        return dataclasses.replace(cfg.reduced(layers=2), num_heads=12, head_dim=64)
+    return dataclasses.replace(cfg.reduced(layers=3), num_heads=2, head_dim=256)
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "recurrentgemma-2b"])
+def test_zoo_model_and_engine_kernels_match_plain(cuda, arch):
+    """Prefill (a ring that wraps for the hybrid's 16-row local window) and 8
+    decode steps with the kernels against the plain path, then the engine
+    with flash and block-sparse prefill against the plain engine."""
+    cfg = _zoo_reduced(arch)
+    params = T.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(3))
+    outs = {}
+    _build.reset_launch_counts()
+    for knob in (None, "flash"):
+        c = dataclasses.replace(cfg, attn_kernel=knob)
+        logits, cache = T.prefill(params, {"tokens": toks}, c, 48)
+        seq = [logits]
+        tok = torch.argmax(logits[:, -1:], -1)
+        for i in range(8):
+            logits, cache = T.decode_step(params, tok, cache, 24 + i, c)
+            seq.append(logits)
+            tok = torch.argmax(logits, -1)
+        outs[knob] = seq
+    for a, b in zip(outs["flash"], outs[None]):
+        torch.testing.assert_close(a, b, **LOGITS)
+    layers = sum(cfg.mixer_for_layer(i) != "rglru" for i in range(cfg.num_layers))
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == layers and counts["decode_attention"] == 8 * layers
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (8, 24, 8, 16, 40)]
+    runs = {}
+    for knob in (None, "flash", "block_sparse"):
+        reqs = [Request(prompt=list(p), max_new_tokens=5) for p in prompts]
+        ServeEngine(dataclasses.replace(cfg, attn_kernel=knob), params, max_slots=3,
+                    cache_len=64, prompt_bucket=8, device=cuda).run(reqs)
         runs[knob] = [(r.output, r.admit_tick, r.finish_tick) for r in reqs]
     assert runs["flash"] == runs[None] == runs["block_sparse"]
 

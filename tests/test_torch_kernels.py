@@ -76,6 +76,19 @@ def test_sliding_window_plain_matches_pallas_interpret(S, window):
     np.testing.assert_allclose(out.numpy(), ref, **F32)
 
 
+@pytest.mark.parametrize("S,window", [(64, 24), (96, 40)])
+def test_sliding_window_plain_hd256_matches_pallas_interpret(S, window):
+    """recurrentgemma-2b's head dim (256), 10 heads."""
+    rng = np.random.default_rng(S + window)
+    B, H, hd = 1, 10, 256
+    q, k, v = (_randn(rng, B, S, H, hd) for _ in range(3))
+    ref = _unfold(np.asarray(sliding_window_attention_pallas(
+        *(jnp.asarray(_fold(x)) for x in (q, k, v)), window=window, block_q=16, block_k=16,
+        interpret=True)), B, H)
+    out = ops.sliding_window_attention(*(torch.from_numpy(x) for x in (q, k, v)), window=window)
+    np.testing.assert_allclose(out.numpy(), ref, **F32)
+
+
 def _decode_inputs(rng, B=3, L=40, KV=2, G=2, hd=32):
     q = _randn(rng, B, KV, G, hd)
     k = _randn(rng, B, L, KV, hd)
@@ -103,6 +116,28 @@ def test_decode_plain_matches_jax_ref(quantized):
     out = kd.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                               torch.from_numpy(valid), **kw_t)
     np.testing.assert_allclose(out.numpy(), ref, **F32)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("G,hd,L", [(48, 128, 70), (10, 256, 40)])
+def test_decode_plain_zoo_groups_match_jax_ref(G, hd, L, quantized):
+    """granite-20b's 48 query heads on one kv head, recurrentgemma-2b's 10 at
+    hd 256, over a linear cache, a wrapped ring and a single live slot."""
+    rng = np.random.default_rng(G + hd + quantized)
+    q, k, v, valid = _decode_inputs(rng, L=L, KV=1, G=G, hd=hd)
+    kw_j, kw_t = {}, {}
+    if quantized:
+        (kq, ks), (vq, vs) = quantize_kv_ref(jnp.asarray(k)), quantize_kv_ref(jnp.asarray(v))
+        k, v = np.array(kq), np.array(vq)
+        kw_j = dict(k_scale=ks, v_scale=vs)
+        kw_t = dict(k_scale=torch.from_numpy(np.array(ks)), v_scale=torch.from_numpy(np.array(vs)))
+    ref = np.asarray(decode_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(valid), **kw_j))
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(valid))
+    np.testing.assert_allclose(kd.decode_attention(*args, **kw_t).numpy(), ref, **F32)
+    # the kernel's split plan, written out on the host, agrees too
+    np.testing.assert_allclose(kd.decode_attention_split(*args, **kw_t).numpy(), ref, **F32)
 
 
 def test_decode_ops_wrapper_kv_major_heads():
@@ -144,3 +179,15 @@ def test_wrappers_take_plain_version_only_on_cpu():
     kc = torch.zeros(1, 8, 2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         kd.decode_attention(qd, kc, kc, torch.ones(1, 8, dtype=torch.bool, device="meta"))
+
+
+def test_decode_wide_body_entry_takes_cuda_tensors_only():
+    """The entry that forces the decode kernel's wide body (for timing it
+    against the split body) has no plain version: CPU tensors are refused."""
+    q = torch.zeros(1, 2, 2, 64)
+    kc = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kd.decode_attention_wide_body(q, kc, kc, torch.ones(1, 8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="come together"):
+        kd.decode_attention_wide_body(q, kc, kc, torch.ones(1, 8, dtype=torch.bool),
+                                      k_scale=torch.ones(1, 8, 2))
