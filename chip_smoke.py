@@ -6,11 +6,15 @@
     python3 chip_smoke.py --phases 1,2,8,9   # kernels, one round, the trainer
     python3 chip_smoke.py --phases 11,12     # the serving fleet, train and serve
     python3 chip_smoke.py --phases 2,13      # kernels, then the model zoo at full width
+    python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
+                                             # and this one in turns (no phases)
 
 Phases (any failure exits non-zero):
   1. card, versions, and an nvcc build of every kernel from ``csrc/``, with
-     ptxas registers / spills and the SASS of the two attention libraries
-     (the bf16 variants must hold tensor-core instructions);
+     ptxas registers / spills and the SASS of the attention and decode
+     libraries (the bf16 attention variants and the decode kernel's
+     tensor-core body must hold tensor-core instructions and spill nothing;
+     hd 256 must have its two-warpgroup variant);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes: max error, tolerance, kernel / plain / library ms, bound, and
      for the attention rows achieved TFLOP/s and share of the bound
@@ -208,18 +212,44 @@ def attention_rate(tag: str, flops: float, ms: float, b_ms: float, fn, lib, sets
 
 # ------------------------------------------------------------------ phase 1
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
+# kernel variants that must hold tensor-core instructions and spill nothing:
+# every bf16 attention variant, and the decode library's tensor-core body
+TENSOR_CORE_VARIANTS = re.compile(r"attn_fwd_bf16|decode_mma_kernel")
+
+
+def ptxas_report() -> dict[str, tuple[int, int]]:
+    """(registers, spill bytes: stores + loads) per kernel from this run's
+    ptxas reports (empty for a library that was already built)."""
+    from repro_torch.kernels import _build
+
+    report = {}
+    for text in _build.BUILD_LOG.values():
+        fn, spill = None, 0
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                report[fn] = (int(m.group(1)), spill)
+    return report
 
 
 def attention_sass() -> None:
     """Count tensor-core (HGMMA: wgmma, HMMA: mma.sync) and copy (UTMALDG:
-    TMA, LDGSTS: cp.async) instructions in the two attention libraries'
-    SASS, per kernel variant; fail if a bf16 variant has no tensor-core
-    instruction."""
+    TMA, LDGSTS: cp.async) instructions in the attention and decode
+    libraries' SASS, per kernel variant; fail if a bf16 attention variant or
+    a tensor-core decode variant has no tensor-core instruction or spills,
+    or if hd 256 has no two-warpgroup (384-thread) bf16 variant."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    ptxas = ptxas_report()
     bad = []
-    for name in ("flash_attn", "block_sparse_attn"):
+    for name in ("flash_attn", "block_sparse_attn", "decode_attn"):
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.lib_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts: dict[str, dict[str, int]] = {}
@@ -234,15 +264,26 @@ def attention_sass() -> None:
                     if re.search(rf"\b{op}\b", line):
                         counts[fn][op] += 1
         for fn, c in sorted(counts.items()):
-            variant = "bf16" if "attn_fwd_bf16" in fn else "f32" if "attn_fwd_f32" in fn else "?"
-            log(f"[1]   {name} SASS {variant} {fn[:60]}: "
-                + ", ".join(f"{op} {n}" for op, n in c.items()))
-            if variant == "bf16" and c["HGMMA"] + c["HMMA"] == 0:
+            variant = ("bf16" if "attn_fwd_bf16" in fn else "f32" if "attn_fwd_f32" in fn
+                       else "tensor-core" if "decode_mma_kernel" in fn
+                       else "split" if "decode_split_kernel" in fn
+                       else "CUDA-core wide" if "decode_wide_kernel" in fn else "?")
+            m = re.search(r"attn_fwd_bf16ILi(\d+)ELi(\d)E", fn)
+            shape = f" hd {m.group(1)}, {128 * (int(m.group(2)) + 1)} threads" if m else ""
+            log(f"[1]   {name} SASS {variant}{shape} {fn[:60]}: "
+                + ", ".join(f"{op} {n}" for op, n in c.items())
+                + ("" if fn not in ptxas else
+                   f"; {ptxas[fn][0]} registers, {ptxas[fn][1]} spill bytes"))
+            if TENSOR_CORE_VARIANTS.search(fn) and (c["HGMMA"] + c["HMMA"] == 0
+                                                    or ptxas.get(fn, (0, 0))[1] > 0):
                 bad.append(fn)
-        if not any("attn_fwd_bf16" in fn for fn in counts):
-            bad.append(f"{name}: no bf16 variant")
+        if name != "decode_attn" and not any("attn_fwd_bf16ILi256ELi2E" in fn for fn in counts):
+            bad.append(f"{name}: no two-warpgroup bf16 variant at hd 256")
+        if not any(TENSOR_CORE_VARIANTS.search(fn) for fn in counts):
+            bad.append(f"{name}: no tensor-core variant")
     if bad:
-        raise AssertionError(f"bf16 attention kernels without tensor-core instructions: {bad}")
+        raise AssertionError(f"tensor-core kernels without tensor-core instructions, or "
+                             f"spilling: {bad}")
 
 
 # --------------------------------------------------------------- phase 2
@@ -489,7 +530,7 @@ def decode_edge_cases(dev, gen, failures: list) -> None:
             out = kd.decode_attention(q, k, v, valid, **kw)
             torch.cuda.synchronize()
             within_tol(f"decode split {case} B{B} L{L} KV{KV} G{G} hd{hd} {dt} "
-                       f"(chunks of {kd.split_plan(B, KV, L)[0]})", out,
+                       f"(chunks of {kd.split_plan(B, KV, L, G)[0]})", out,
                        kd.decode_attention_plain(q, k, v, valid, **kw),
                        "float32" if ftype == torch.float32 else dt, failures)
 
@@ -775,7 +816,9 @@ def check_wide_shapes(dev) -> dict:
     cases = {"all-masked row": (3, 200, 1, 48, 128), "single live row": (3, 300, 1, 10, 256),
              "L=37": (3, 37, 2, 12, 64), "L=1000": (3, 1000, 1, 48, 128),
              "L=2047": (3, 2047, 1, 10, 256), "G=64": (2, 500, 2, 64, 256),
-             "G=9": (3, 260, 2, 9, 128), "G=1 hd256": (3, 130, 4, 1, 256)}
+             "G=9": (3, 260, 2, 9, 128), "G=1 hd256": (3, 130, 4, 1, 256),
+             "G=3": (3, 300, 2, 3, 128), "G=17 hd64": (3, 200, 2, 17, 64),
+             "G=33": (2, 700, 1, 33, 256)}
     for case, (B, L, KV, G, hd) in cases.items():
         pos = torch.tensor([17, 3 * L + 5, L // 2][:B], device=dev)
         slot = torch.remainder(pos, L)
@@ -797,7 +840,7 @@ def check_wide_shapes(dev) -> dict:
             out = kd.decode_attention(q, k, v, valid, **kw)
             torch.cuda.synchronize()
             within_tol(f"decode wide {case} B{B} L{L} KV{KV} G{G} hd{hd} {dt} "
-                       f"(chunks of {kd.split_plan(B, KV, L)[0]})", out,
+                       f"(chunks of {kd.split_plan(B, KV, L, G)[0]})", out,
                        kd.decode_attention_plain(q, k, v, valid, **kw),
                        "float32" if ftype == torch.float32 else dt, failures)
     torch.cuda.empty_cache()
@@ -805,6 +848,148 @@ def check_wide_shapes(dev) -> dict:
         raise AssertionError(f"kernels disagree with their plain versions at the zoo's shapes: "
                              f"{failures}")
     return records
+
+
+# ------------------------------------------------------------ --turns
+# the decode rows that --turns times: (B, L, KV, G, hd, positions, int8 too);
+# positions -1 mean "the last slot" (a full linear cache) and a ring wraps
+# past L
+TURN_DECODE = {
+    "G2 hd128 (qwen3-1.7b)": (4, 1024, 8, 2, 128, (300, 1500, 0, 1023), True),
+    "G3 hd128": (4, 272, 8, 3, 128, (263, 270, 256, 271), False),
+    "G4 hd128 (qwen3-4b)": (4, 272, 8, 4, 128, (263, 270, 256, 271), False),
+    "G8 hd128 (command-r-35b)": (2, 272, 8, 8, 128, (263, 270), False),
+    "G16 hd128": (4, 1024, 2, 16, 128, (300, 1500, 0, 1023), False),
+    "G48 hd128 (granite-20b)": (4, 1024, 1, 48, 128, (300, 3 * 1024 + 77, 0, 1023), True),
+    "G10 hd256 (recurrentgemma-2b)": (4, 2048, 1, 10, 256, (300, 3 * 2048 + 77, 0, 2047), True),
+}
+
+
+def time_rows(dev) -> dict[str, dict]:
+    """Device ms (``torch.profiler``) and per-call ms (CUDA events) of the
+    attention and decode rows of PERF.md's kernel table, on whichever tree's
+    ``repro_torch`` this process imported, with SDPA's device ms beside each
+    row that has one and each row's bound (no correctness check: phase 2
+    makes those)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import block_sparse as kbs
+    from repro_torch.kernels import decode as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import sliding_window as ksw
+    from repro_torch.kernels.ref import block_sparse_mask, quantize_kv_ref
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows: dict[str, dict] = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def row(name, fn, lib, sets, tsets, flops, nbytes, reps):
+        b_ms, by = bound(flops, nbytes, "bfloat16")
+        rows[name] = dict(device_ms=device_ms(fn, sets, reps), ms=time_ms(fn, sets, reps),
+                          library_device_ms=None if lib is None else device_ms(lib, tsets, reps),
+                          bound_ms=b_ms, bound_by=by)
+        torch.cuda.synchronize()
+
+    def pairs(S, window):
+        return sum(min(i + 1, window or S) for i in range(S))
+
+    def heads_first(sets):
+        return [tuple(t.transpose(1, 2).contiguous() for t in s_) for s_ in sets]
+
+    for B, S, H, hd, W in ((4, 512, 16, 128, None), (4, 200, 10, 256, 2048)):
+        nbytes = 4 * B * S * H * hd * 2
+        sets = copies_past_l2(lambda: tuple(randn(B, S, H, hd) for _ in range(3)), nbytes)
+        row(f"flash causal B{B} S{S} H{H} hd{hd}",
+            lambda a, b_, c, W=W: kf.flash_attention(a, b_, c, causal=True, window=W),
+            lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True),
+            sets, heads_first(sets), 4 * B * H * hd * pairs(S, W), nbytes, 20)
+    S = 8448
+    for H, hd, W in ((16, 128, 8192), (10, 256, 2048)):
+        sets = [tuple(randn(1, S, H, hd) for _ in range(3))]
+        qpos = torch.arange(S, device=dev)
+        band = (qpos[:, None] >= qpos[None, :]) & (qpos[:, None] - qpos[None, :] < W)
+        row(f"sliding window B1 S{S} H{H} hd{hd} window {W}",
+            lambda a, b_, c, W=W: ksw.sliding_window_attention(a, b_, c, window=W),
+            lambda a, b_, c, m=band: F.scaled_dot_product_attention(a, b_, c, attn_mask=m),
+            sets, heads_first(sets), 4 * H * hd * pairs(S, W), 4 * S * H * hd * 2, 5)
+        pattern = kbs.BlockSparsePattern.windowed(S, S, W, 128, 128)
+        mask = block_sparse_mask(pattern, dev)
+        row(f"block_sparse windowed B1 S{S} H{H} hd{hd} window {W}",
+            lambda a, b_, c, p=pattern: kbs.block_sparse_attention(a, b_, c, p),
+            lambda a, b_, c, m=mask: F.scaled_dot_product_attention(a, b_, c, attn_mask=m),
+            sets, heads_first(sets), 4 * H * hd * int(mask.sum()), 4 * S * H * hd * 2, 5)
+        del sets, band, mask
+    B, S, H, hd = 4, 512, 16, 128
+    pattern = kbs.BlockSparsePattern.causal_pattern(S, S, 128, 128)
+    mask = block_sparse_mask(pattern, dev)
+    nbytes = 4 * B * S * H * hd * 2
+    sets = copies_past_l2(lambda: tuple(randn(B, S, H, hd) for _ in range(3)), nbytes)
+    row(f"block_sparse causal B{B} S{S} H{H} hd{hd}",
+        lambda a, b_, c: kbs.block_sparse_attention(a, b_, c, pattern),
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=mask),
+        sets, heads_first(sets), 4 * B * H * hd * int(mask.sum()), nbytes, 20)
+    del sets, mask
+
+    for tag, (B, L, KV, G, hd, pos, int8_too) in TURN_DECODE.items():
+        slot = torch.remainder(torch.tensor(pos, device=dev), L)
+        age = torch.remainder(slot[:, None] - torch.arange(L, device=dev)[None], L)
+        valid = age < torch.clamp(torch.tensor(pos, device=dev) + 1, max=L)[:, None]
+        n_valid = int(valid.sum())
+        for quant in (False, True) if int8_too else (False,):
+            def make():
+                q, k, v = randn(B, KV, G, hd), randn(B, L, KV, hd), randn(B, L, KV, hd)
+                if not quant:
+                    return (q, k, v, valid, None, None)
+                (kq, ks), (vq, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+                return (q, kq, vq, valid, ks, vs)
+
+            nbytes = (2 * n_valid * KV * hd * (1 if quant else 2) + 2 * B * KV * G * hd * 2
+                      + B * L + (2 * n_valid * KV * 4 if quant else 0))
+            sets = copies_past_l2(make, nbytes)
+            tsets = None if quant else [
+                (a[0].reshape(B, KV * G, 1, hd), a[1].transpose(1, 2).contiguous(),
+                 a[2].transpose(1, 2).contiguous(), a[3][:, None, None, :]) for a in sets]
+            row(f"decode {tag} {'int8' if quant else 'bf16'} B{B} L{L} KV{KV}, {n_valid} live rows",
+                lambda q, k, v, vl, ks, vs: kd.decode_attention(q, k, v, vl, k_scale=ks,
+                                                                  v_scale=vs),
+                None if quant else lambda q, k, v, m: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m, enable_gqa=True),
+                sets, tsets, 4 * n_valid * KV * G * hd, nbytes, 50)
+            del sets, tsets
+    return rows
+
+
+def turns(parent: Path) -> None:
+    """The rows of ``time_rows`` for the tree at ``parent`` and for this one
+    in turns (parent, this, this, parent), each turn a process of its own
+    that imports its tree's ``repro_torch`` and builds its kernels; logs
+    each row's device ms per turn, SDPA's, the bound and the share of it."""
+    runs = []
+    for label, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                        ("parent", parent)):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--time-rows",
+                              str(Path(root).resolve() / "src")],
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            raise AssertionError(f"--time-rows on {root} failed:\n{out.stdout[-4000:]}"
+                                 f"{out.stderr[-4000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        log(f"[turns] {label} ({root}) took {time.perf_counter() - t0:.1f} s")
+    for name in runs[0]:
+        d = [r[name]["device_ms"] for r in runs]
+        c = [r[name]["ms"] for r in runs]
+        lib = runs[1][name]["library_device_ms"]
+        b_ms = runs[1][name]["bound_ms"]
+        change = (d[1] + d[2]) / 2
+        log(f"[turns] {name}: device ms parent {d[0]:.4f} / {d[3]:.4f}, change {d[1]:.4f} / "
+            f"{d[2]:.4f} ({b_ms / change:.1%} of the bound {b_ms:.4f} ms, "
+            f"{runs[1][name]['bound_by']}); per call parent {c[0]:.4f} / {c[3]:.4f}, change "
+            f"{c[1]:.4f} / {c[2]:.4f}; SDPA device "
+            + ("none" if lib is None else f"{lib:.4f} / {runs[2][name]['library_device_ms']:.4f}"))
 
 
 # ------------------------------------------------------------ phases 3-6
@@ -2080,8 +2265,14 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--turns", metavar="PARENT_ROOT",
+                    help="instead of the phases: time the attention and decode rows of the "
+                         "checkout at PARENT_ROOT and of this one in turns")
+    ap.add_argument("--time-rows", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    if args.time_rows:  # one turn of --turns: that tree's package, not this one's
+        sys.path.insert(0, args.time_rows)
 
     import torch
 
@@ -2093,6 +2284,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     dev = resolve_device("cuda")
+    if args.time_rows:
+        print(json.dumps(time_rows(dev)), flush=True)
+        return 0
+    if args.turns:
+        print(gpu_name_and_limit(), flush=True)
+        turns(Path(args.turns))
+        print(gpu_name_and_limit(), flush=True)
+        return 0
     t_start = time.perf_counter()
     # the card's name and power limit, as nvidia-smi gives them
     print(gpu_name_and_limit(), flush=True)

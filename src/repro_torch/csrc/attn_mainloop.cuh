@@ -27,11 +27,12 @@
 //     head) as two consumer warpgroups of 64 rows (64 rows, one warpgroup,
 //     when Sq <= 64); S = Q.K^T and O += P.V are wgmma.m64nNk16 with bf16
 //     operands and f32 accumulators (Q, K, V from shared memory, P from
-//     registers); kv tiles are 128 keys; at hd 256 a CTA is one 64-row
-//     consumer warpgroup (two per 128-row query tile) and each kv tile
-//     arrives as two 64-key stages (S = Q.K^T on wgmma.m64n64k16, O += P.V
-//     on m64n256k16), so Q and a 2-stage ring fit in 160 KB and the f32
-//     output in 128 registers a thread;
+//     registers); kv tiles are 128 keys; at hd 256 each kv tile arrives as
+//     two 64-key stages (S = Q.K^T on wgmma.m64n64k16, O += P.V on
+//     m64n256k16) that both consumer warpgroups read, so Q (64 KB) and a
+//     2-stage ring (128 KB) fit in 192 KB, each stage is loaded once per
+//     128 query rows, and the f32 output (128 registers a thread) fits in
+//     the 232 registers that setmaxnreg gives a consumer;
 //   * the softmax runs on the S accumulator in registers: the scale is
 //     applied in f32 to the scores (with log2(e) folded in, for exp2f),
 //     row max and sum by quad shuffles, P rounded once to bf16 for the PV
@@ -487,8 +488,8 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[KT / 2], uint64_t da, uint64
 // (K [HD/64][KT][64], V [HD/64][KT][64]), each 64-column half a run of
 // 128-byte swizzled rows; then the mbarriers.  A stage holds KT keys: the
 // whole 128-key tile, or at hd 256 half of it (a 128-key stage would need
-// 320 KB with Q, and a 64 x 256 f32 output already takes 128 registers a
-// thread), so the schedule's tiles stay 128 keys wide on every head dim.
+// 384 KB with a 128-row Q; a third 64-key stage 256 KB), so the schedule's
+// tiles stay 128 keys wide on every head dim.
 template <int HD, int NWG>
 struct Bf16Plan {
   static constexpr int BM = 64 * NWG;
@@ -498,13 +499,14 @@ struct Bf16Plan {
   static constexpr uint32_t Q_BYTES = HALVES * BM * 128;
   static constexpr uint32_t KV_BYTES = HALVES * KT * 128;  // K or V, one stage
   static constexpr uint32_t BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
-  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  // mbarriers: Q, then per stage K (K and V below hd 256), empty, and V at hd 256
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + (HD == 256 ? 3 : 2) * STAGES) + 1024;
   static constexpr int THREADS = 128 * (NWG + 1);
 };
 
 // A CTA owns BM query rows: a whole query tile of the schedule (tile_q ==
-// BM), or at hd 256 (one 64-row warpgroup) one of the tile_q / 64 parts of
-// it, which all walk the tile's kv schedule.
+// BM), or one of the tile_q / BM parts of it, which all walk the tile's kv
+// schedule.
 template <int HD, int NWG, typename Sched>
 __global__ void __launch_bounds__(Bf16Plan<HD, NWG>::THREADS, 1)
 attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -520,11 +522,20 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   const uint32_t bar_q = base + P::BAR_OFF;
   auto sK = [&](int st) { return base + P::Q_BYTES + st * 2 * P::KV_BYTES; };
   auto sV = [&](int st) { return sK(st) + P::KV_BYTES; };
-  auto bar_full = [&](int st) { return bar_q + 8 * (1 + st); };
+  // at hd 256 a stage's K and V land on barriers of their own, so S = Q K^T
+  // starts while V is still in flight; hd 64 / 128 keep one barrier and no
+  // stage skipping (with both, the hd-128 sliding window ran ~9% slower on
+  // the H100: PERF.md)
+  constexpr bool SPLIT_KV = HD == 256;
+  auto bar_k = [&](int st) { return bar_q + 8 * (1 + st); };
+  auto bar_v = [&](int st) { return SPLIT_KV ? bar_q + 8 * (1 + 2 * STAGES + st) : bar_k(st); };
   auto bar_empty = [&](int st) { return bar_q + 8 * (1 + STAGES + st); };
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
+  // tile_q / BM parts per tile, 1 on every path today; kept general: with q0
+  // a known multiple of BM nvcc laid out the hd-128 masks in 14% more
+  // instructions and flash at S 512 ran 8% slower on the H100 (PERF.md)
   const int parts = sched.tile_q / BM;
   const int qt = gridDim.y / parts - 1 - blockIdx.y / parts;  // heaviest tiles first
   const int q0 = qt * sched.tile_q + (blockIdx.y % parts) * BM;
@@ -535,7 +546,8 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(bar_full(st), 1);
+      mbar_init(bar_k(st), 1);
+      if (SPLIT_KV) mbar_init(bar_v(st), 1);
       mbar_init(bar_empty(st), 4 * NWG);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -555,11 +567,22 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
         // read before the wait hides it
         const int k0 = sched.tile(qt, i / P::SUBS).index * TILE_K + (i % P::SUBS) * KT;
         if (i >= STAGES) mbar_wait(bar_empty(st), ((i / STAGES) - 1) & 1);
-        mbar_expect_tx(bar_full(st), 2 * P::KV_BYTES);
+        if constexpr (SPLIT_KV) {
+          mbar_expect_tx(bar_k(st), P::KV_BYTES);
 #pragma unroll
-        for (int hh = 0; hh < P::HALVES; ++hh) {
-          tma_load(sK(st) + hh * KT * 128, &kmap, bar_full(st), 64 * hh, h, k0, b);
-          tma_load(sV(st) + hh * KT * 128, &vmap, bar_full(st), 64 * hh, h, k0, b);
+          for (int hh = 0; hh < P::HALVES; ++hh)
+            tma_load(sK(st) + hh * KT * 128, &kmap, bar_k(st), 64 * hh, h, k0, b);
+          mbar_expect_tx(bar_v(st), P::KV_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < P::HALVES; ++hh)
+            tma_load(sV(st) + hh * KT * 128, &vmap, bar_v(st), 64 * hh, h, k0, b);
+        } else {
+          mbar_expect_tx(bar_k(st), 2 * P::KV_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < P::HALVES; ++hh) {
+            tma_load(sK(st) + hh * KT * 128, &kmap, bar_k(st), 64 * hh, h, k0, b);
+            tma_load(sV(st) + hh * KT * 128, &vmap, bar_k(st), 64 * hh, h, k0, b);
+          }
         }
       }
     }
@@ -580,11 +603,30 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     for (int r = 0; r < HD / 2; ++r) acc[r] = 0.f;
     float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
 
+    // the first and last query rows of this warpgroup that exist
+    const int q_first = q0 + 64 * wg, q_last = min(q_first + 63, sched.Sq - 1);
     mbar_wait(bar_q, 0);
     for (int i = 0; i < n; ++i) {
       const int st = i % STAGES;
       const KvTile t = sched.tile(qt, i / P::SUBS);
-      mbar_wait(bar_full(st), (i / STAGES) & 1);
+      const int k_first = t.index * TILE_K + (i % P::SUBS) * KT, k_last = k_first + KT - 1;
+      mbar_wait(bar_k(st), (i / STAGES) & 1);
+      // at hd 256 (64-key stages, two per kv tile) a warpgroup skips a stage
+      // none of its (row, key) pairs attends, which adds exactly 0: its keys
+      // past Sk, or (where the causal / window rule alone decides) above
+      // every row's diagonal or before every row's window.  Each row has a
+      // live key in a stage it does visit, so skipping changes nothing.
+      const bool dead =
+          HD == 256 &&
+          (q_first > q_last || k_first >= sched.Sk ||
+           (t.mask == MASK_ELEM && ((sched.causal && k_first > q_last) ||
+                                    (sched.window > 0 && q_first - k_last >= sched.window))));
+      if (dead) {
+        mbar_wait(bar_v(st), (i / STAGES) & 1);  // a stage is freed once all of it landed
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty(st));
+        continue;
+      }
 
       // S = Q K^T over the head dim, 16 at a time
       float s[KT / 2];
@@ -651,6 +693,7 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
       for (int r = 0; r < HD / 2; ++r) acc[r] *= (r % 4) < 2 ? alpha_a : alpha_b;
 
       // O += P V, 16 keys at a time; V is read N-major (transposed)
+      if (SPLIT_KV) mbar_wait(bar_v(st), (i / STAGES) & 1);
       pin(acc);
       wgmma_fence();
 #pragma unroll
@@ -752,15 +795,9 @@ template <int HD, typename Sched>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                         Strides qs, Strides ks, Strides vs, Strides os, float scale,
                         const Sched& sched, cudaStream_t stream) {
-  // hd 256: one consumer warpgroup (its 64 x 256 f32 output fills the
-  // registers), tile_q / 64 CTAs per query tile
-  if constexpr (HD == 256) {
+  if (sched.tile_q == 64)
     return launch_bf16_wg<HD, 1>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
-  } else {
-    if (sched.tile_q == 64)
-      return launch_bf16_wg<HD, 1>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
-    return launch_bf16_wg<HD, 2>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
-  }
+  return launch_bf16_wg<HD, 2>(q, k, v, o, B, H, qs, ks, vs, os, scale, sched, stream);
 }
 
 // dtype (DT_F32 / DT_BF16) and head dim dispatch of both bodies

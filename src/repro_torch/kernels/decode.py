@@ -13,10 +13,12 @@ The kernel cuts L into chunks of whole 64-row tiles (:func:`split_plan`), one
 block per (chunk, kv head, batch row); tiles with no live row are skipped
 and each chunk leaves an f32 partial ``(m, l, acc)`` that the last of its
 row's blocks to finish combines.  Head dims 64, 128 and 256 and 1 to 64
-query heads per kv head: past 2 heads, or at hd 256, a wider body (its K/V
-tiles staged in shared memory, one warp per group of heads) runs the same
-plan.  :func:`decode_attention_split` runs that plan on
-the host, for the CPU tests.
+query heads per kv head: past 2 heads, or at hd 256, a wider body runs the
+same plan -- for bf16 queries on the tensor cores (the G heads padded to
+16-row tiles; P split into two bf16 halves, so it keeps about 16 bits), for
+f32 queries on the CUDA cores.  :func:`decode_attention_split` runs that
+plan on the host, for the CPU tests, and with ``tensor_cores=True`` also the
+tensor-core body's arithmetic.
 """
 from __future__ import annotations
 
@@ -44,15 +46,34 @@ TILE = 64
 MAX_BLOCKS = 16 * 132
 #: chunks per cache row at most (the combining block keeps a weight for each)
 MAX_SPLITS = 256
+#: chunks x query heads per cache row at most (``csrc/decode_attn.cu::
+#: MAX_PARTIALS``: the (m, l) pairs the tensor-core body's combine keeps)
+MAX_PARTIALS = 2048
+#: cache rows a chunk holds per query head at least where the partials go
+#: through device memory: a chunk's f32 partial (G x hd floats) then stays at
+#: most a quarter of its bf16 K/V bytes
+ROWS_PER_HEAD = 4
+#: chunks of a cache row that the wide body combines in one thread-block
+#: cluster, through distributed shared memory (``csrc/decode_attn.cu::
+#: MAX_CLUSTER``), and the tiles a chunk may hold to fit a row in one
+CLUSTER, CLUSTER_TILES = 8, 4
 
 
-def split_plan(B: int, KV: int, L: int) -> tuple[int, int]:
+def split_plan(B: int, KV: int, L: int, G: int = 1) -> tuple[int, int]:
     """``(chunk, splits)``: cache rows per block, a multiple of ``TILE``, and
-    ``ceil(L / chunk)`` chunks, so that the ``splits x KV x B`` grid holds at
-    most about ``MAX_BLOCKS`` blocks (one tile per block while that fits) and
-    a cache row at most ``MAX_SPLITS`` chunks."""
+    ``ceil(L / chunk)`` chunks.  Past 2 query heads per kv head a cache row
+    of at most ``CLUSTER x CLUSTER_TILES`` tiles is cut into at most
+    ``CLUSTER`` chunks (one cluster, whose blocks combine on chip).  Else the
+    ``splits x KV x B`` grid holds at most about ``MAX_BLOCKS`` blocks (one
+    tile per block while that fits), a cache row at most ``MAX_SPLITS``
+    chunks and ``MAX_PARTIALS`` partials (chunks x ``G``), and a chunk at
+    least ``ROWS_PER_HEAD x G`` rows."""
     tiles = -(-L // TILE)
-    per = max(1, -(-(tiles * B * KV) // MAX_BLOCKS), -(-tiles // MAX_SPLITS))
+    if G > 2 and tiles <= CLUSTER * CLUSTER_TILES:
+        per = -(-tiles // CLUSTER)
+    else:
+        per = max(1, -(-(tiles * B * KV) // MAX_BLOCKS), -(-tiles // MAX_SPLITS),
+                  -(-(ROWS_PER_HEAD * G) // TILE), -(-tiles // (MAX_PARTIALS // G)))
     chunk = TILE * per
     return chunk, -(-L // chunk)
 
@@ -62,37 +83,45 @@ def decode_attention_plain(q, k, v, valid, *, scale=None, k_scale=None, v_scale=
     return decode_attention_ref(q, k, v, valid, scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
-def decode_attention_split(q, k, v, valid, *, scale=None, k_scale=None, v_scale=None):
+def decode_attention_split(q, k, v, valid, *, scale=None, k_scale=None, v_scale=None,
+                           tensor_cores=False):
     """The kernel's plan in plain PyTorch (f32): the chunks of :func:`split_plan`
     tile by tile with an online softmax, tiles without a live row skipped,
     dead rows contributing nothing (their K/V never read), the per-chunk
     partials ``(m, l, acc)`` and the combine; a batch row with no live row
     takes the uniform mean of V over all L.  Same arguments and result as
-    :func:`decode_attention_plain`."""
+    :func:`decode_attention_plain`.  With ``tensor_cores`` (bf16 queries),
+    the tensor-core body's arithmetic: the raw queries times K with the scale
+    on the f32 scores, and P.V as ``bf16(p).V + bf16(p - bf16(p)).V``.
+    Float64 queries (and K/V) run the plan in float64: an oracle whose
+    rounding stays far below the f32 bound."""
     B, KV, G, hd = q.shape
     L = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     quant = k_scale is not None
-    chunk, splits = split_plan(B, KV, L)
-    qs = q.float() * scale
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.full((B, KV, splits, G), -math.inf, **f32)
-    l = torch.zeros(B, KV, splits, G, **f32)
-    acc = torch.zeros(B, KV, splits, G, hd, **f32)
+    chunk, splits = split_plan(B, KV, L, G)
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32  # compute type
+    qs = q.to(ct) if tensor_cores else q.to(ct) * scale
+    opts = dict(dtype=ct, device=q.device)
+    m = torch.full((B, KV, splits, G), -math.inf, **opts)
+    l = torch.zeros(B, KV, splits, G, **opts)
+    acc = torch.zeros(B, KV, splits, G, hd, **opts)
     for s in range(splits):
-        run_m = torch.full((B, KV, G), -math.inf, **f32)
-        run_l = torch.zeros(B, KV, G, **f32)
-        run_acc = torch.zeros(B, KV, G, hd, **f32)
+        run_m = torch.full((B, KV, G), -math.inf, **opts)
+        run_l = torch.zeros(B, KV, G, **opts)
+        run_acc = torch.zeros(B, KV, G, hd, **opts)
         for l0 in range(s * chunk, min((s + 1) * chunk, L), TILE):
             l1 = min(l0 + TILE, L)  # rows past L score -inf: weight exactly 0
             live = valid[:, l0:l1].bool()  # [B, n]
             took = live.any(1)  # tiles without a live row are skipped
             if not bool(took.any()):
                 continue
-            kt = torch.where(live[:, :, None, None], k[:, l0:l1].float(), 0.0)
-            vt = torch.where(live[:, :, None, None], v[:, l0:l1].float(), 0.0)
+            kt = torch.where(live[:, :, None, None], k[:, l0:l1].to(ct), 0.0)
+            vt = torch.where(live[:, :, None, None], v[:, l0:l1].to(ct), 0.0)
             sc = torch.einsum("bngd,blnd->bngl", qs, kt)
+            if tensor_cores:
+                sc = sc * scale
             if quant:
                 sc = sc * k_scale[:, l0:l1].permute(0, 2, 1)[:, :, None, :]
             sc = sc.masked_fill(~live[:, None, None, :], NEG_INF)
@@ -104,8 +133,13 @@ def decode_attention_split(q, k, v, valid, *, scale=None, k_scale=None, v_scale=
             alpha = torch.exp(run_m - m_new)
             t = took[:, None, None]
             run_l = torch.where(t, run_l * alpha + total, run_l)
-            run_acc = torch.where(t[..., None], run_acc * alpha[..., None]
-                                  + torch.einsum("bngl,blnd->bngd", p, vt), run_acc)
+            if tensor_cores:  # p as two bf16 halves, each product on f32 sums
+                hi = p.to(torch.bfloat16).float()
+                pv = (torch.einsum("bngl,blnd->bngd", hi, vt)
+                      + torch.einsum("bngl,blnd->bngd", (p - hi).to(torch.bfloat16).float(), vt))
+            else:
+                pv = torch.einsum("bngl,blnd->bngd", p, vt)
+            run_acc = torch.where(t[..., None], run_acc * alpha[..., None] + pv, run_acc)
             run_m = torch.where(t, m_new, run_m)
         m[:, :, s], l[:, :, s], acc[:, :, s] = run_m, run_l, run_acc
     # combine: empty chunks (m = -inf) carry no weight and no acc
@@ -115,7 +149,7 @@ def decode_attention_split(q, k, v, valid, *, scale=None, k_scale=None, v_scale=
     lsum = (w * l).sum(2)
     out = (w[..., None] * torch.where(empty[..., None], 0.0, acc)).sum(2)
     out = out / torch.clamp(lsum, min=1e-30)[..., None]
-    vf = v.float() * (v_scale[..., None] if quant else 1.0)
+    vf = v.to(ct) * (v_scale[..., None] if quant else 1.0)
     uniform = (vf.sum(1) / L)[:, :, None, :].expand(B, KV, G, hd)  # no live row at all
     out = torch.where(big[:, :, 0, :, None] == -math.inf, uniform, out)
     return out.to(q.dtype)
@@ -204,7 +238,7 @@ def _launch(q, k, v, valid, scale, k_scale, v_scale, symbol="repro_decode_attn")
         raise ValueError("decode_attn: arguments the kernel does not take")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    chunk, splits = split_plan(B, KV, L)
+    chunk, splits = split_plan(B, KV, L, G)
     n_part = B * KV * splits * G
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, counts = _workspace(dev, stream, n_part * (hd + 2), B * KV)

@@ -237,9 +237,58 @@ def test_decode_wide_kernel_matches_plain(cuda, B, L, KV, G, hd, dtype):
                                **tol)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("L", [37, 300])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [3, 4, 8, 9, 10, 16, 17, 33, 48, 64])
+def test_decode_tensor_core_body_matches_plain(cuda, G, hd, L, dtype):
+    """The tensor-core body (bf16 queries, bf16 or int8 K/V) at every 16-row
+    padding of the group, each head dim, L under one tile and a 300-row
+    cache: a linear row, a wrapped ring and an all-masked row, within the
+    decode bound (no slack: P keeps about 16 bits)."""
+    q, k, v, valid = _decode_inputs(cuda, B=3, L=L, KV=1 if G > 16 else 2, G=G, hd=hd)
+    valid[2] = False
+    q = q.to(torch.bfloat16)
+    kw = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    counter = kd.launches_int8 if kw else kd.launches
+    before = counter.count
+    out = kd.decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    torch.testing.assert_close(out.float(), kd.decode_attention_plain(q, k, v, valid, **kw).float(),
+                               **BF16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("L,G,hd", [(4100, 10, 256), (200_000, 48, 128)])
+def test_decode_tensor_core_body_long_caches(cuda, L, G, hd, dtype):
+    """Caches past 32 tiles: the partials combine through device memory
+    (more than 8 chunks a row), and at L 200000 a chunk's 75 tiles cross the
+    kernel's 64-tile window of live-row masks."""
+    q, k, v, valid = _decode_inputs(cuda, L=L, KV=1, G=G, hd=hd)
+    valid[1, 3000:150_000] = False  # whole dead windows of tiles in a wrapped ring
+    q = q.to(torch.bfloat16)
+    kw = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv_ref(k), quantize_kv_ref(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert kd.split_plan(3, 1, L, G)[1] > kd.CLUSTER
+    out = kd.decode_attention(q, k, v, valid, **kw)
+    torch.testing.assert_close(out.float(), kd.decode_attention_plain(q, k, v, valid, **kw).float(),
+                               **BF16)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("B,L,KV,G,hd", [(3, 1000, 8, 2, 128), (4, 272, 8, 4, 128),
-                                         (2, 272, 8, 8, 128), (3, 1000, 1, 48, 128)])
+                                         (2, 272, 8, 8, 128), (3, 1000, 1, 48, 128),
+                                         (3, 2047, 1, 10, 256), (2, 500, 1, 64, 256)])
 def test_decode_kernel_repeats_exactly_across_interleaved_inputs(cuda, B, L, KV, G, hd, dtype):
     """The combine reads the partials that its own call's blocks wrote: two
     inputs of one shape alternate (so the scratch holds the other input's
@@ -288,11 +337,17 @@ def test_decode_wide_body_matches_plain_where_the_split_body_runs(cuda, hd, dtyp
 
 
 def test_decode_split_kernel_matches_its_cpu_twin(cuda):
+    """The f32 kernel against its plan run on the CPU in float64.  The
+    twin's own f32 einsums were the unsteady side: in 1 of 30 processes on
+    the card's host its first call came out up to 7.5e-5 off (41 of 6144
+    elements past the bound) while the kernel's output was the same bit for
+    bit in every run and within 2e-7 of the float64 twin."""
     q, k, v, valid, _ = _decode_case("L1000", "float32", cuda)
     valid[0, 100:700] = False  # whole dead tiles in a live row
     out = kd.decode_attention(q, k, v, valid)
-    twin = kd.decode_attention_split(*(t.cpu() for t in (q, k, v, valid)))
-    torch.testing.assert_close(out.cpu(), twin, **F32)
+    twin = kd.decode_attention_split(*(t.cpu().double() for t in (q, k, v)), valid.cpu())
+    assert twin.dtype == torch.float64
+    torch.testing.assert_close(out.cpu(), twin.float(), **F32)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -306,6 +361,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kd.decode_attention(qd, kc.transpose(1, 2).contiguous().transpose(1, 2), kc,
                             torch.ones(1, 8, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("window", [None, 50])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 200, 257])
+def test_flash_kernel_hd256_two_warpgroups(cuda, S, window):
+    """hd 256 bf16: a CTA owns a 128-row query tile as two 64-row consumer
+    warpgroups reading one K/V stage (64 rows, one warpgroup, at S <= 64):
+    the tile's two halves, ragged tails, causal and windowed."""
+    g = torch.Generator(device=cuda).manual_seed(S + (window or 0))
+    q, k, v = (_randn(g, 2, S, 3, 256, dtype=torch.bfloat16, device=cuda) for _ in range(3))
+    before = kf.launches.count
+    out = kf.flash_attention(q, k, v, causal=True, window=window)
+    assert kf.launches.count == before + 1
+    _assert_attention_close(
+        out, kf.flash_attention_plain(q, k, v, causal=True, window=window),
+        lambda v_: kf.flash_attention_plain(q, k, v_, causal=True, window=window), v)
 
 
 def _pattern(layout, S, block, block_k=None):
@@ -351,6 +422,20 @@ def test_block_sparse_kernel_uneven_blocks(cuda, block_q, block_k, hd, dtype):
             kbs.block_sparse_attention(q, k, v, pattern),
             kbs.block_sparse_attention_plain(q, k, v, pattern),
             lambda v_: kbs.block_sparse_attention_plain(q, k, v_, pattern), v)
+
+
+@pytest.mark.parametrize("layout,S,block", [("strided", 512, 64), ("windowed", 512, 128),
+                                            ("strided", 320, 32), ("windowed", 208, 16)])
+def test_block_sparse_kernel_hd256_two_warpgroups(cuda, layout, S, block):
+    """Block-sparse attention at hd 256 on the two-warpgroup bf16 body:
+    strided and windowed patterns, lengths that end mid-tile."""
+    g = torch.Generator(device=cuda).manual_seed(S + block)
+    q, k, v = (_randn(g, 2, S, 2, 256, dtype=torch.bfloat16, device=cuda) for _ in range(3))
+    pattern = _pattern(layout, S, block)
+    _assert_attention_close(
+        kbs.block_sparse_attention(q, k, v, pattern),
+        kbs.block_sparse_attention_plain(q, k, v, pattern),
+        lambda v_: kbs.block_sparse_attention_plain(q, k, v_, pattern), v)
 
 
 def test_block_sparse_kernel_reads_strided_views(cuda):

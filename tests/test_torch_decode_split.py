@@ -47,6 +47,11 @@ def _valid(B, L, mask, rng):
         v = rng.random((B, L)) < 0.3
         v[:, 0] = True
         return v
+    if mask == "dead_tiles":  # row 0 all masked; the others lose whole tiles
+        v = rng.random((B, L)) < 0.7
+        v[0] = False
+        v[1:, 64:192] = False
+        return v
     v = idx <= np.minimum(pos, L - 1)[:, None]
     v[0] = False
     return v
@@ -83,8 +88,39 @@ def test_split_plan_covers_the_cache_in_whole_tiles(B, KV, L):
 
 
 def test_split_plan_at_the_serving_shape():
-    # B4 L1024 KV8: 16 chunks of 64 rows, 512 blocks on 132 SMs
+    # qwen3-1.7b, B4 L1024 KV8 G2: 16 chunks of 64 rows, 512 blocks on 132 SMs
+    assert kd.split_plan(4, 8, 1024, 2) == (64, 16)
     assert kd.split_plan(4, 8, 1024) == (64, 16)
+
+
+@pytest.mark.parametrize("B,KV,L,G,expect", [
+    (4, 1, 1024, 48, (128, 8)),    # granite-20b: a row of 8 chunks, one cluster
+    (4, 1, 2048, 10, (256, 8)),    # recurrentgemma-2b's ring
+    (4, 8, 272, 4, (64, 5)),       # qwen3-4b
+    (2, 8, 272, 8, (64, 5)),       # command-r-35b
+    (2, 1, 500, 64, (64, 8)),
+    (3, 2, 37, 33, (64, 1)),       # a cache under one tile
+    (4, 1, 2049, 48, (192, 11)),   # past 32 tiles: partials through device memory
+    (1, 1, 10**6, 64, None),       # long caches: at most MAX_PARTIALS partials a row
+])
+def test_split_plan_at_wide_groups(B, KV, L, G, expect):
+    """Past 2 query heads a cache row of at most CLUSTER x CLUSTER_TILES
+    tiles is cut into at most CLUSTER chunks (one cluster); a longer one
+    gives a chunk at least ROWS_PER_HEAD rows per head (its f32 partial at
+    most a quarter of its bf16 K/V bytes) and a row at most MAX_PARTIALS
+    partials (the combine's (m, l) pairs)."""
+    chunk, splits = kd.split_plan(B, KV, L, G)
+    if expect is not None:
+        assert (chunk, splits) == expect
+    assert chunk % kd.TILE == 0
+    assert (splits - 1) * chunk < L <= splits * chunk
+    assert splits * G <= kd.MAX_PARTIALS and splits <= kd.MAX_SPLITS
+    if -(-L // kd.TILE) <= kd.CLUSTER * kd.CLUSTER_TILES:
+        assert splits <= kd.CLUSTER and chunk <= kd.CLUSTER_TILES * kd.TILE
+    else:
+        assert chunk >= kd.ROWS_PER_HEAD * G
+    # the split body's groups keep the plan they had
+    assert kd.split_plan(B, KV, L, 2) == kd.split_plan(B, KV, L)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -154,3 +190,85 @@ def test_dead_rows_are_never_read():
     out2 = kd.decode_attention_split(t[0], torch.where(dead, garbage, t[1]),
                                      torch.where(dead, -garbage, t[2]), t[3])
     assert torch.equal(out, out2)
+
+
+def _wide_args(dtype, q, k, v, valid):
+    """(args, kwargs, JAX oracle output) of one dtype: f32, bf16, or int8 K/V
+    with bf16 queries (the serving path's int8 cache)."""
+    tv = torch.from_numpy(valid)
+    if dtype == "int8":
+        (kq, ks), (vq, vs) = (quantize_kv_ref(torch.from_numpy(a)) for a in (k, v))
+        qb = torch.from_numpy(q).to(torch.bfloat16)
+        jax_out = _jax_ref(qb.float().numpy(), kq.numpy(), vq.numpy(), valid, ks.numpy(),
+                           vs.numpy())
+        return (qb, kq, vq, tv), dict(k_scale=ks, v_scale=vs), jax_out
+    if dtype == "bfloat16":
+        args = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)) + (tv,)
+        return args, {}, _jax_ref(*(a.float().numpy() for a in args[:3]), valid)
+    args = tuple(torch.from_numpy(a) for a in (q, k, v)) + (tv,)
+    return args, {}, _jax_ref(q, k, v, valid)
+
+
+# wide groups at reduced L: recurrentgemma-2b's G 10 at hd 256, granite-20b's
+# G 48, and the 16-row padding edges G 17 and G 33
+WIDE = [(256, 10, 300, "ring"), (128, 48, 400, "ring"), (128, 17, 260, "holes"),
+        (64, 33, 330, "dead_tiles"), (256, 48, 200, "dead_tiles")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("hd,G,L,mask", WIDE)
+def test_split_twin_at_wide_groups(dtype, hd, G, L, mask):
+    """The plan at wide G (chunks of at least 4 rows per head) against the
+    plain version and the JAX oracle: bf16 and f32, int8 K/V with bf16
+    queries, an all-masked row, whole dead tiles and dead rows."""
+    B, KV = 3, 1 if G > 16 else 2
+    q, k, v, valid = _inputs(B, L, KV, G, hd, mask, seed=hd + G + L)
+    args, kw, jax_out = _wide_args(dtype, q, k, v, valid)
+    tol = F32 if dtype == "float32" else BF16
+    twin = kd.decode_attention_split(*args, **kw)
+    plain = kd.decode_attention_plain(*args, **kw)
+    assert twin.dtype == plain.dtype and twin.shape == plain.shape
+    torch.testing.assert_close(twin.float(), plain.float(), **tol)
+    np.testing.assert_allclose(twin.float().numpy(), jax_out, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("hd,G,L,mask", WIDE + [(128, 3, 1000, "holes"), (64, 64, 150, "ring")])
+def test_tensor_core_arithmetic_within_the_decode_bound(dtype, hd, G, L, mask):
+    """The tensor-core body's arithmetic (bf16 Q.K^T on f32 sums with the
+    scale after, P.V as bf16(p) + bf16(p - bf16(p))) over the plan, against
+    the plain version and the JAX oracle, within the unchanged decode bound
+    (``atol 1e-4, rtol 1e-2``)."""
+    B, KV = 3, 1 if G > 16 else 2
+    q, k, v, valid = _inputs(B, L, KV, G, hd, mask, seed=7 * hd + G + L)
+    args, kw, jax_out = _wide_args(dtype, q, k, v, valid)
+    emulated = kd.decode_attention_split(*args, **kw, tensor_cores=True)
+    plain = kd.decode_attention_plain(*args, **kw)
+    assert emulated.dtype == plain.dtype == torch.bfloat16
+    torch.testing.assert_close(emulated.float(), plain.float(), **BF16)
+    np.testing.assert_allclose(emulated.float().numpy(), jax_out, **BF16)
+
+
+def test_p_split_keeps_sixteen_bits():
+    """hi = bf16(p), lo = bf16(p - hi) recovers p to about 2**-16 of its
+    value, where bf16(p) alone is off by up to 2**-9."""
+    p = torch.from_numpy(np.random.default_rng(0).random(100000).astype(np.float32))
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert float(((hi + lo - p).abs() / p).max()) <= 2.0**-16
+    assert float(((hi - p).abs() / p).max()) > 2.0**-10
+
+
+@pytest.mark.parametrize("hd,G,L,mask", [(128, 2, 1000, "holes"), (256, 10, 300, "ring"),
+                                         (64, 4, 200, "dead")])
+def test_split_twin_in_float64(hd, G, L, mask):
+    """Float64 inputs run the plan in float64 (the on-card test's oracle for
+    the f32 kernel): it agrees with the f32 twin and the JAX oracle within
+    the f32 bound and returns float64."""
+    q, k, v, valid = _inputs(3, L, 2, G, hd, mask, seed=11 * hd + G)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    twin64 = kd.decode_attention_split(*(a.double() for a in t), torch.from_numpy(valid))
+    twin32 = kd.decode_attention_split(*t, torch.from_numpy(valid))
+    assert twin64.dtype == torch.float64
+    torch.testing.assert_close(twin64.float(), twin32, **F32)
+    np.testing.assert_allclose(twin64.numpy(), _jax_ref(q, k, v, valid), **F32)
