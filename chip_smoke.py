@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,8,9   # kernels, one round, the trainer
     python3 chip_smoke.py --phases 11,12     # the serving fleet, train and serve
     python3 chip_smoke.py --phases 2,13      # kernels, then the model zoo at full width
+    python3 chip_smoke.py --phases 2,14      # kernels, then MoE / SSM / VLM / enc-dec configs
     python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
                                              # and this one in turns (no phases)
 
@@ -58,19 +59,30 @@ Phases (any failure exits non-zero):
      block-sparse prefill, and ``serve.py --fleet 2`` with its --no-fastpath
      twin (recurrentgemma-2b also one 4096-token request that wraps its
      2048-row rings); qwen3-4b and command-r-35b (30.3 B parameters) through
-     ``serve.py`` batch mode against the plain path; peak memory per model.
-Phases 4-6, 9, 11, 12 and 13 are the main paths: launch counters are zeroed
-just before each run and read just after, and every kernel the run goes
-through must have launched (in phases 11 and 13, once per attention layer
-and model forward).  Phase 2 also checks and times the attention and decode
-kernels at the zoo's shapes (hd 256; decode at G 48, G 10 with hd 256, G 4
-and G 8), and the decode kernel's split body against its wide body where
-both apply; the zoo rows' launches come from phase 13.  The line before the last is the kernels' JSON summary; the
-last line is the run's JSON status.
+     ``serve.py`` batch mode against the plain path; peak memory per model;
+ 14. the MoE, SSM, VLM and encoder-decoder configs at full width, one on the
+     card at a time: deepseek-moe-16b (prefill + decode with flash and
+     block-sparse against the plain path, its routing pinned; the engine at
+     12 slots with flash, int8 KV and block-sparse; ``serve.py --fleet 2``
+     and its twin), mamba2-1.3b (the decode continuing one chunked scan,
+     held in f32 and read in bf16 beside the model's own noise floor; the
+     engine; ``serve.py``), internvl2-2b with ``patches`` and whisper-small
+     with ``frames`` (prefill + decode with flash and int8 KV against the
+     plain path, the engine, ``serve.py``); peak memory and ms/token.
+Phases 4-6, 9, 11, 12, 13 and 14 are the main paths: launch counters are
+zeroed just before each run and read just after, and every kernel the run
+goes through must have launched (in phases 11, 13 and 14, once per attention
+layer and model forward).  Phase 2 also checks and times the attention and
+decode kernels at the zoo's shapes (hd 256 and 64; decode at G 48, G 10
+with hd 256, G 4, G 8, G 1 on 16 kv heads and G 1 with hd 64), and the
+decode kernel's split body against its wide body where both apply; the zoo
+rows' launches come from phases 13 and 14.  The line before the last is the
+kernels' JSON summary; the last line is the run's JSON status.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -651,14 +663,24 @@ def check_block_sparse(dev) -> dict:
 # with bf16 and int8 KV as phase 13's engines serve them; qwen3-4b's (G 4)
 # and command-r-35b's (G 8) decode over the 272-row linear caches of their
 # serve.py batches, bf16 as served (int8 KV checked, not a row: no main path
-# runs it at these shapes)
+# runs it at these shapes); phase 14's: deepseek-moe-16b's engine (12 slots
+# of a 1024-row linear cache, one query head on each of 16 kv heads) and
+# whisper-small's (hd 64, 12 kv heads, a 256-row cache), bf16 and int8 KV,
+# positions mid-decode (``pos``: the rows written so far, less one)
 RG_ATTN = dict(B=1, S=8448, H=10, hd=256, window=2048)
 ZOO_DECODE = {
     "G48 hd128": dict(B=4, L=1024, KV=1, G=48, hd=128, arch="granite-20b", int8_row=True),
     "G10 hd256": dict(B=4, L=2048, KV=1, G=10, hd=256, arch="recurrentgemma-2b", int8_row=True),
     "G4 hd128": dict(B=4, L=272, KV=8, G=4, hd=128, arch="qwen3-4b", int8_row=False),
     "G8 hd128": dict(B=2, L=272, KV=8, G=8, hd=128, arch="command-r-35b", int8_row=False),
+    "G1 KV16 hd128": dict(B=12, L=1024, KV=16, G=1, hd=128, arch="deepseek-moe-16b",
+                          int8_row=True, pos=(25, 608, 138, 341, 25, 488, 72, 259, 608, 104,
+                                              208, 53)),
+    "G1 hd64": dict(B=4, L=256, KV=12, G=1, hd=64, arch="whisper-small", int8_row=True,
+                    pos=(15, 47, 127, 24)),
 }
+# whisper-small's decoder self-attention prefill (12 heads of 64, causal)
+WHISPER_ATTN = dict(B=4, S=200, H=12, hd=64)
 
 
 def check_wide_shapes(dev) -> dict:
@@ -667,9 +689,12 @@ def check_wide_shapes(dev) -> dict:
     its 2048 window), block-sparse at the same shape, f32 bodies at hd 256,
     and decode at G 48 / hd 128 and G 10 / hd 256 (bf16 and int8 KV, a
     wrapped ring) and at qwen3-4b's G 4 and command-r-35b's G 8 (hd 128,
-    272-row caches), each against its plain version and timed; then the decode edge cases at the
-    new G and hd.  Each record names the counter
-    and the arch whose phase-13 runs give its launches."""
+    272-row caches); for phase 14, flash at whisper-small's hd 64 (12
+    heads) and decode at deepseek-moe-16b's G 1 on 16 kv heads and
+    whisper-small's G 1 at hd 64 (bf16 and int8 KV); each against its plain
+    version and timed; then the decode edge cases at the new G and hd.  Each
+    record names the counter and the arch whose phase-13 or phase-14 runs
+    give its launches."""
     import torch
     import torch.nn.functional as F
 
@@ -762,6 +787,21 @@ def check_wide_shapes(dev) -> dict:
                                 replaces="src/repro/kernels/flash_attention.py:120")
     del sets
 
+    # -- flash at hd 64 (whisper-small's decoder self-attention, phase 14)
+    B, S, H, hd = (WHISPER_ATTN[k] for k in ("B", "S", "H", "hd"))
+    sets = copies_past_l2(lambda: tuple(randn(B, S, H, hd, dtype=torch.bfloat16)
+                                        for _ in range(3)), 4 * B * S * H * hd * 2)
+    rec = attention_row(
+        "flash_attention hd64", f"causal B{B} S{S} H{H} hd{hd} bf16",
+        lambda a, b_, c: kf.flash_attention(a, b_, c, causal=True),
+        lambda a, b_, c: kf.flash_attention_plain(a, b_, c, causal=True),
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True),
+        *sets[0], "bfloat16", pairs(S, None), 20, sets=sets)
+    records[rec["name"]] = dict(rec, arch="whisper-small",
+                                source="src/repro_torch/csrc/flash_attn.cu",
+                                replaces="src/repro/kernels/flash_attention.py:120")
+    del sets
+
     # -- hd 256 corners: ragged lengths, windows, a strided pattern; f32 bodies
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
@@ -790,7 +830,9 @@ def check_wide_shapes(dev) -> dict:
     for tag, shp in ZOO_DECODE.items():
         B, L, KV, G, hd = (shp[k] for k in ("B", "L", "KV", "G", "hd"))
         idx = torch.arange(L, device=dev)
-        if shp["int8_row"]:  # a ring: the second row wraps
+        if "pos" in shp:  # a linear cache mid-decode
+            pos = torch.tensor(shp["pos"], device=dev)
+        elif shp["int8_row"]:  # a ring: the second row wraps
             pos = torch.tensor([300, 3 * L + 77, 0, L - 1], device=dev)[:B]
         else:  # serve.py's batch mid-decode: 257 to 271 of 272 rows written
             pos = torch.tensor([263, 270, 256, 271], device=dev)[:B]
@@ -1001,39 +1043,113 @@ LOGIT_REL_BOUND = 0.05
 GREEDY_AGREE_BOUND = 0.75
 
 
-def logits_vs_plain(label, a, b) -> None:
+def logits_vs_plain(label, a, b, check: bool = True) -> None:
     """Kernel-path logits ``a`` against the plain path's ``b`` (float32,
     positions along the first axes, vocab last): rel L2 and greedy agreement
-    within the model bounds, or raise."""
+    within the model bounds, or raise (``check=False``: log only)."""
     import torch
 
     if not bool(torch.isfinite(a).all()):
         raise AssertionError(f"{label}: non-finite logits on the kernel path")
     rel = float((a - b).norm() / b.norm())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    log(f"{label}: logits rel L2 error kernel vs plain {rel:.3e} (bound {LOGIT_REL_BOUND}), "
-        f"greedy agreement {agree:.3f} (bound >= {GREEDY_AGREE_BOUND})")
-    if rel > LOGIT_REL_BOUND or agree < GREEDY_AGREE_BOUND:
+    bounds = (f" (bound {LOGIT_REL_BOUND})", f" (bound >= {GREEDY_AGREE_BOUND})") if check else (
+        " (not a check)", "")
+    log(f"{label}: logits rel L2 error kernel vs plain {rel:.3e}{bounds[0]}, "
+        f"greedy agreement {agree:.3f}{bounds[1]}")
+    if check and (rel > LOGIT_REL_BOUND or agree < GREEDY_AGREE_BOUND):
         raise AssertionError(f"{label}: kernel path disagrees with the plain path at full width")
+
+
+class RoutingPin:
+    """Pins a MoE model's routing from one run to the next.  ``record()``
+    keeps the expert ids each router call picks; ``replay()`` makes the
+    calls of a later run, in the same order, take those ids (gates from that
+    run's own probabilities, renormalised over them) and counts the tokens
+    whose experts its own router would have changed.  With random weights
+    many tokens' k-th and (k+1)-th experts lie within a bf16 step of each
+    other, so a rounding difference between two attention paths moves
+    tokens to other experts, and the logits apart by far more than the
+    attention paths differ; pinned, two runs differ by their attention
+    alone.  No-op for models without MoE layers."""
+
+    def __init__(self):
+        self.ids: list = []
+        self.moved = self.tokens = 0
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patched(select):
+        from repro_torch.models import moe
+
+        real = moe.select
+        moe.select = lambda params, x, cfg: select(real, params, x, cfg)
+        try:
+            yield
+        finally:
+            moe.select = real
+
+    def record(self):
+        self.ids = []
+
+        def select(real, params, x, cfg):
+            out = real(params, x, cfg)
+            self.ids.append(out[2])
+            return out
+
+        return self._patched(select)
+
+    @contextlib.contextmanager
+    def replay(self):
+        import torch
+
+        calls = iter(self.ids)
+        self.moved = self.tokens = 0
+
+        def select(real, params, x, cfg):
+            probs, _, own = real(params, x, cfg)
+            idx = next(calls, None)
+            if idx is None or idx.shape != own.shape:
+                raise AssertionError("routing pin: the runs' router calls differ")
+            self.moved += int((idx.sort(-1).values != own.sort(-1).values).any(-1).sum())
+            self.tokens += own.shape[0] * own.shape[1]
+            gates = torch.gather(probs, -1, idx)
+            return probs, gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), idx
+
+        with self._patched(select):
+            yield
+        if next(calls, None) is not None:
+            raise AssertionError("routing pin: the replayed run made fewer router calls")
+
+    def note(self) -> str:
+        return (f" (MoE routing pinned to the first run's: its own router would have moved "
+                f"{self.moved} of {self.tokens} token-layers)" if self.ids else "")
 
 
 def prefill_decode_vs_plain(tag, cfg, params, dev, knobs, B=4, S=200, steps=16,
                             cache_len=256) -> None:
     """Prefill B x S + ``steps`` decode steps with each attention knob of
-    ``knobs`` against the plain attention path (``attn_kernel=None``),
-    teacher-forced on the first knob's greedy tokens."""
+    ``knobs`` (an ``attn_kernel`` name, or a label and its config overrides)
+    against the plain attention path (``attn_kernel=None``), teacher-forced
+    on the first knob's greedy tokens.  Whisper's ``frames`` and internvl2's
+    ``patches`` are serve.py's stubs, drawn after the tokens.  A MoE model's
+    routing is pinned to the first knob's run (``RoutingPin``); its plain
+    run with free routing is logged beside, not checked."""
     import torch
 
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import transformer as T
 
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
-    runs = {}
-    for knob in (*knobs, None):
-        c = dataclasses.replace(cfg, attn_kernel=knob)
-        logits, cache = T.prefill(params, {"tokens": tokens}, c, cache_len)
+    batch = {"tokens": tokens, **stub_inputs(cfg, B, gen, dev)}
+    overrides = dict((k, {"attn_kernel": k}) if isinstance(k, str) else k for k in knobs)
+    labels = list(overrides)
+
+    def run(over, feed):
+        c = dataclasses.replace(cfg, **over)
+        logits, cache = T.prefill(params, batch, c, cache_len)
         outs = [logits[:, -1].float()]
-        feed = runs[knobs[0]]["greedy"] if knob != knobs[0] else None
         greedy = [torch.argmax(outs[-1], -1)]
         for i in range(steps):
             tok = (feed[i] if feed is not None else greedy[-1])[:, None]
@@ -1041,12 +1157,26 @@ def prefill_decode_vs_plain(tag, cfg, params, dev, knobs, B=4, S=200, steps=16,
             outs.append(logits[:, 0].float())
             greedy.append(torch.argmax(outs[-1], -1))
         torch.cuda.synchronize()
-        runs[knob] = {"logits": torch.stack(outs), "greedy": greedy}
-        del cache, logits
-    for knob in knobs:
-        logits_vs_plain(f"{tag} {knob}: prefill {B}x{S} + {steps} decode steps",
-                        runs[knob]["logits"], runs[None]["logits"])
-    del runs
+        return torch.stack(outs), greedy
+
+    pin = RoutingPin()
+    with pin.record():
+        first, feed = run(overrides[labels[0]], None)
+    runs, notes = {labels[0]: first}, {}
+    for label in labels[1:]:
+        with pin.replay():
+            runs[label] = run(overrides[label], feed)[0]
+        notes[label] = pin.note()
+    with pin.replay():
+        plain = run({}, feed)[0]
+    plain_note = f"; plain{pin.note()}" if pin.ids else ""
+    for label in labels:
+        logits_vs_plain(f"{tag} {label}: prefill {B}x{S} + {steps} decode steps"
+                        f"{notes.get(label, '')}{plain_note}", runs[label], plain)
+    if pin.ids:  # the plain path routed by its own router: for the record
+        logits_vs_plain(f"{tag} {labels[0]}: the same against the plain path with its own "
+                        f"routing", first, run({}, feed)[0], check=False)
+    del runs, first, plain
     torch.cuda.empty_cache()
 
 
@@ -2058,61 +2188,82 @@ FLASH_PREFILL = ("flash_attention", "sliding_window_attention")  # S < 256, S >=
 
 
 def attention_layers(cfg) -> int:
-    return sum(cfg.mixer_for_layer(i) != "rglru" for i in range(cfg.num_layers))
+    """Layers whose self-attention takes the kernels (whisper's encoder and
+    cross-attention keep the plain path, as the reference's)."""
+    return sum(cfg.mixer_for_layer(i) in ("attn", "local_attn") for i in range(cfg.num_layers))
 
 
 def zoo_row(arch: str, counter: str) -> str:
     """The kernels line's row whose shapes ``arch``'s launches of ``counter``
-    run: decode at the arch's row of ``ZOO_DECODE``, recurrentgemma-2b's
-    attention at hd 256, the other archs' attention at the qwen3-1.7b rows'
-    hd 128."""
+    run: decode at the arch's row of ``ZOO_DECODE`` (internvl2-2b's G 2 at
+    the qwen3-1.7b row), recurrentgemma-2b's attention at hd 256,
+    whisper-small's at hd 64, the other archs' at the qwen3-1.7b rows' hd
+    128."""
     if counter.startswith("decode"):
-        return next(f"{counter} {tag}" for tag, shp in ZOO_DECODE.items() if shp["arch"] == arch)
-    return f"{counter} hd256" if arch == "recurrentgemma-2b" else counter
+        return next((f"{counter} {tag}" for tag, shp in ZOO_DECODE.items()
+                     if shp["arch"] == arch), counter)
+    return {"recurrentgemma-2b": f"{counter} hd256",
+            "whisper-small": f"{counter} hd64"}.get(arch, counter)
 
 
-def zoo_engines(arch, cfg, params, dev, lens, cache_len, total) -> None:
-    """ServeEngine with plain attention, flash, flash + int8 KV and
-    block-sparse prefill on 8 requests (16 new tokens each): first tokens
-    against the plain engine's, launches against the forwards."""
+ENGINE_RUNS = (("flash", {"attn_kernel": "flash"}, FLASH_PREFILL, "decode_attention"),
+               ("flash, int8 KV", {"attn_kernel": "flash", "quantized_kv": True}, FLASH_PREFILL,
+                "decode_attention_int8"),
+               ("block_sparse", {"attn_kernel": "block_sparse"}, ("block_sparse_attention",),
+                "decode_attention"))
+
+
+def zoo_engines(arch, cfg, params, dev, lens, cache_len, total, *, slots=4, runs=ENGINE_RUNS,
+                extra=None, phase=13) -> list:
+    """ServeEngine with plain attention and each of ``runs`` (flash, flash +
+    int8 KV and block-sparse prefill by default) on ``len(lens)`` requests
+    (16 new tokens each; ``extra`` the engine's ``extra_inputs``): first
+    tokens against the plain engine's (>= 3/4; a MoE model's routing pinned
+    to the plain engine's), launches against the forwards.  Returns each
+    run's seconds per generated token."""
     import torch
 
     from repro_torch.kernels import _build
 
     layers = attention_layers(cfg)
+    n = len(lens)
     rng = random.Random(len(arch))
     pool = {}
-    prompts = [pool.setdefault(n, [rng.randrange(cfg.vocab_size) for _ in range(n)])
-               for n in lens]
-    kw = dict(max_slots=4, cache_len=cache_len, prompt_bucket=32)
-    log(f"[13] {arch} ServeEngine: 8 requests, prompts {lens}, 16 new tokens, 4 slots x "
-        f"{cache_len}-token cache")
-    plain, *_ = run_engine("plain attention (reference)", cfg, params, dev, prompts, 16, **kw)
-    runs = (("flash", {"attn_kernel": "flash"}, FLASH_PREFILL, "decode_attention"),
-            ("flash, int8 KV", {"attn_kernel": "flash", "quantized_kv": True}, FLASH_PREFILL,
-             "decode_attention_int8"),
-            ("block_sparse", {"attn_kernel": "block_sparse"}, ("block_sparse_attention",),
-             "decode_attention"))
+    prompts = [pool.setdefault(m, [rng.randrange(cfg.vocab_size) for _ in range(m)])
+               for m in lens]
+    kw = dict(max_slots=slots, cache_len=cache_len, prompt_bucket=32, extra_inputs=extra)
+    log(f"[{phase}] {arch} ServeEngine: {n} requests, prompts {lens}, 16 new tokens, {slots} "
+        f"slots x {cache_len}-token cache" + (f", extra inputs {sorted(extra)}" if extra else ""))
+    pin = RoutingPin()
+    with pin.record():
+        plain, *_ = run_engine("plain attention (reference)", cfg, params, dev, prompts, 16,
+                               **kw)
+    per_token = []
     for label, over, pks, dk in runs:
         _build.reset_launch_counts()
-        reqs, _, _, eng = run_engine(label, dataclasses.replace(cfg, **over), params, dev,
-                                     prompts, 16, **kw)
+        with pin.replay():
+            reqs, secs, _, eng = run_engine(label, dataclasses.replace(cfg, **over), params, dev,
+                                            prompts, 16, **kw)
         torch.cuda.synchronize()
+        per_token.append(secs / (16 * n))
         counts = _build.launch_counts()
         for k, v in counts.items():
             total[k] += v
-        launches_per_forward(13, f"{arch} engine {label}", counts, pks, dk,
+        launches_per_forward(phase, f"{arch} engine {label}", counts, pks, dk,
                              eng.prefill_forwards, eng.decode_forwards, layers)
         firsts = sum(a.output[0] == b.output[0] for a, b in zip(reqs, plain))
         same = sum(a.output == b.output for a, b in zip(reqs, plain))
-        log(f"[13] {arch} {label}: first tokens equal to the plain engine's {firsts}/8, whole "
-            f"outputs {same}/8 (bound: first tokens >= 6/8)")
-        if firsts < 6:
-            raise AssertionError(f"[13] {arch} {label} engine disagrees with the plain engine")
+        need = math.ceil(0.75 * n)
+        log(f"[{phase}] {arch} {label}: first tokens equal to the plain engine's {firsts}/{n}, "
+            f"whole outputs {same}/{n} (bound: first tokens >= {need}/{n}){pin.note()}")
+        if firsts < need:
+            raise AssertionError(f"[{phase}] {arch} {label} engine disagrees with the plain "
+                                 f"engine")
     torch.cuda.empty_cache()
+    return per_token
 
 
-def zoo_fleet(arch, layers, dev, total) -> None:
+def zoo_fleet(arch, layers, dev, total, phase=13) -> float:
     """``serve.py --fleet 2`` at utilization 0.8 with flash, and its
     --no-fastpath twin: tick fields equal, launches against the forwards."""
     import torch
@@ -2126,7 +2277,7 @@ def zoo_fleet(arch, layers, dev, total) -> None:
             "--rate", str(fleet_rate(0.8))]
     out = {}
     for label, extra in (("flash", []), ("flash --no-fastpath", ["--no-fastpath"])):
-        log(f"[13] launch/serve.py {' '.join(argv + extra)} (attn_kernel='flash')")
+        log(f"[{phase}] launch/serve.py {' '.join(argv + extra)} (attn_kernel='flash')")
         _build.reset_launch_counts()
         res = serve.main(argv + extra, config_overrides={"attn_kernel": "flash"})
         torch.cuda.synchronize()
@@ -2134,34 +2285,37 @@ def zoo_fleet(arch, layers, dev, total) -> None:
         for k, v in counts.items():
             total[k] += v
         f = res["metrics"]
-        log(f"[13] {arch} fleet {label}: {f['tok_per_s']:.1f} tokens/s, "
+        log(f"[{phase}] {arch} fleet {label}: {f['tok_per_s']:.1f} tokens/s, "
             f"{f['per_token_ms']:.2f} ms/token, TTFT p50/p99 {f['p50_ttft_ms']:.1f}/"
             f"{f['p99_ttft_ms']:.1f} ms ({f['p50_ttft_ticks']:.0f}/{f['p99_ttft_ticks']:.0f} "
             f"ticks); {res['offered']} offered, {f['completed']} completed, {f['rejected']} "
             f"rejected in {res['ticks']} ticks, {res['wall_seconds']:.1f} s")
-        launches_per_forward(13, f"{arch} fleet {label}", counts, FLASH_PREFILL,
+        launches_per_forward(phase, f"{arch} fleet {label}", counts, FLASH_PREFILL,
                              "decode_attention", res["prefill_forwards"], res["decode_forwards"],
                              layers)
         if f["completed"] + f["rejected"] + f["shed"] != res["offered"] or not f["completed"]:
-            raise AssertionError(f"[13] {arch} fleet {label}: requests lost or none completed")
+            raise AssertionError(f"[{phase}] {arch} fleet {label}: requests lost or none "
+                                 f"completed")
         out[label] = res
     fast, twin = out["flash"], out["flash --no-fastpath"]
     same = {k: (fast["metrics"][k], twin["metrics"][k]) for k in TICK_FIELDS}
     same["ticks"] = (fast["ticks"], twin["ticks"])
     equal = all(a == b for a, b in same.values())
-    log(f"[13] {arch} --no-fastpath twin, tick fields (fast, twin): {same}: "
+    log(f"[{phase}] {arch} --no-fastpath twin, tick fields (fast, twin): {same}: "
         f"{'equal' if equal else 'DIFFERENT'}")
     if not equal:
-        raise AssertionError(f"[13] {arch}: the --no-fastpath twin's tick fields differ")
+        raise AssertionError(f"[{phase}] {arch}: the --no-fastpath twin's tick fields differ")
+    return fast["metrics"]["per_token_ms"]
 
 
-def zoo_serve_batch(arch, B, dev, total) -> None:
-    """``serve.py --arch <arch> --batch B --prompt-len 256 --gen 16`` with
+def zoo_serve_batch(arch, B, dev, total, phase=13, S=256) -> float:
+    """``serve.py --arch <arch> --batch B --prompt-len S --gen 16`` with
     flash: launches = layers x (1 prefill, 15 decode forwards); then the
-    same weights and prompt (serve.py's seeded generator) through the plain
-    path: the served tokens against the plain argmax on their own prefix
-    (>= 3/4) and the flash prefill's logits over that sequence against the
-    plain prefill's."""
+    same weights, prompt and ``frames`` / ``patches`` stubs (serve.py's
+    seeded generator) through the plain path: the served tokens against the
+    plain argmax on their own prefix (>= 3/4) and the flash prefill's logits
+    over that sequence against the plain prefill's.  Returns serve.py's ms
+    per token."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2169,42 +2323,44 @@ def zoo_serve_batch(arch, B, dev, total) -> None:
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
-    S, gen_n = 256, 16
+    gen_n = 16
     cfg = get_config(arch)
     layers = attention_layers(cfg)
     argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(S), "--gen", str(gen_n)]
-    log(f"[13] launch/serve.py {' '.join(argv)} (attn_kernel='flash')")
+    log(f"[{phase}] launch/serve.py {' '.join(argv)} (attn_kernel='flash')")
     _build.reset_launch_counts()
     metrics = serve.main(argv, config_overrides={"attn_kernel": "flash"})
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     for k, v in counts.items():
         total[k] += v
-    log(f"[13] {arch} serve.py: per-token {metrics['per_token_ms']:.2f} ms, prefill "
+    log(f"[{phase}] {arch} serve.py: per-token {metrics['per_token_ms']:.2f} ms, prefill "
         f"{metrics['prefill_seconds']:.3f} s")
-    launches_per_forward(13, f"{arch} serve.py", counts, FLASH_PREFILL, "decode_attention", 1,
+    launches_per_forward(phase, f"{arch} serve.py", counts, FLASH_PREFILL, "decode_attention", 1,
                          gen_n - 1, layers)
     torch.cuda.empty_cache()
     # serve.py's weights and prompt: its --seed 0 generator draws the weights, then the tokens
     g = torch.Generator(device=dev).manual_seed(0)
     params = T.init_model(cfg, generator=g, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    batch = serve.stub_inputs(cfg, B, g, dev)
     served = torch.tensor(metrics["tokens"], device=dev)
-    seq = torch.cat([prompt, served[:, :-1]], dim=1)
+    batch["tokens"] = seq = torch.cat([prompt, served[:, :-1]], dim=1)
     with torch.no_grad():
-        plain, _ = T.prefill(params, {"tokens": seq}, cfg, cache_len=seq.shape[1])
+        plain, _ = T.prefill(params, batch, cfg, cache_len=seq.shape[1])
         want = torch.argmax(plain[:, S - 1:], -1)
-        flash, _ = T.prefill(params, {"tokens": seq},
-                             dataclasses.replace(cfg, attn_kernel="flash"), cache_len=seq.shape[1])
+        flash, _ = T.prefill(params, batch, dataclasses.replace(cfg, attn_kernel="flash"),
+                             cache_len=seq.shape[1])
     share = float((want == served).float().mean())
-    log(f"[13] {arch} serve.py: served tokens equal to the plain argmax on their own prefix "
+    log(f"[{phase}] {arch} serve.py: served tokens equal to the plain argmax on their own prefix "
         f"{int((want == served).sum())}/{served.numel()} = {share:.3f} (bound >= 0.75); first "
         f"tokens {int((want[:, 0] == served[:, 0]).sum())}/{B}")
-    logits_vs_plain(f"[13] {arch} flash prefill over the served sequence",
+    logits_vs_plain(f"[{phase}] {arch} flash prefill over the served sequence",
                     flash[:, S - 1:].float(), plain[:, S - 1:].float())
     if share < 0.75:
-        raise AssertionError(f"[13] {arch}: served tokens disagree with the plain path")
+        raise AssertionError(f"[{phase}] {arch}: served tokens disagree with the plain path")
     del params, plain, flash
+    return metrics["per_token_ms"]
 
 
 def model_zoo(dev) -> dict[str, dict[str, int]]:
@@ -2260,10 +2416,222 @@ def model_zoo(dev) -> dict[str, dict[str, int]]:
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+# the sixth slice's families at full width, one model on the card at a
+# time: prompts per engine (deepseek-moe-16b's 12 fill 12 slots, so that a
+# batched decode passes 8 rows; mamba2-1.3b's are whole 256-token chunks;
+# internvl2-2b's cover its 256 patch positions; whisper-small's decoder
+# prompts are short, as transcripts are)
+FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-1.3b", "internvl2-2b", "whisper-small")
+FAMILY_LENS = {
+    "deepseek-moe-16b": [17, 600, 130, 333, 17, 480, 64, 251, 600, 96, 200, 45],
+    "mamba2-1.3b": [256, 512, 768, 1024, 256, 1024, 512, 768],
+    "internvl2-2b": [256, 300, 600, 257, 480, 256, 400, 333],
+    "whisper-small": [8, 40, 120, 17, 200, 64, 33, 100],
+}
+
+
+MAMBA_F32_REL_BOUND = 1e-3
+
+
+def mamba_continuation(cfg, params, dev, S: int, B: int = 2, steps: int = 16,
+                       check: bool = True) -> None:
+    """Prefill B x S + ``steps`` decode steps (teacher-forced) against one
+    prefill over S + one chunk of the same tokens: the decode path's logits
+    at positions S-1 .. S+steps-1 against the full-sequence chunked scan's.
+    Checked in float32 (``cfg.dtype``): rel L2 <= MAMBA_F32_REL_BOUND (f32
+    summation order; a wrong state or conv tail is O(1)) and phase 3's
+    greedy bound; in bf16 logged beside ``mamba_noise_floor``."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(S)
+    ext = S + cfg.ssm_chunk
+    tokens = torch.randint(0, cfg.vocab_size, (B, ext), generator=gen, device=dev)
+    full, _ = T.prefill(params, {"tokens": tokens}, cfg, ext)
+    logits, cache = T.prefill(params, {"tokens": tokens[:, :S]}, cfg, S)
+    outs = [logits[:, -1]]
+    for i in range(steps):
+        logits, cache = T.decode_step(params, tokens[:, S + i:S + i + 1], cache, S + i, cfg)
+        outs.append(logits[:, 0])
+    a = torch.stack(outs).float()
+    b = full[:, S - 1:S + steps].transpose(0, 1).float()
+    rel = float((a - b).norm() / b.norm())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    bounds = f" (bound {MAMBA_F32_REL_BOUND})" if check else " (not a check)"
+    log(f"[14] mamba2-1.3b {cfg.dtype}: prefill {B}x{S} + {steps} decode steps against one scan "
+        f"over {ext} tokens: logits rel L2 {rel:.3e}{bounds}, greedy agreement {agree:.3f}"
+        + (f" (bound >= {GREEDY_AGREE_BOUND})" if check else ""))
+    if check and (rel > MAMBA_F32_REL_BOUND or agree < GREEDY_AGREE_BOUND):
+        raise AssertionError(f"[14] mamba2-1.3b: the decode path does not continue the scan "
+                             f"(S {S})")
+    del full, logits, cache
+    torch.cuda.empty_cache()
+
+
+def mamba_noise_floor(cfg, params, dev, S: int = 512, B: int = 2) -> None:
+    """How far the bf16 model moves its own logits under a rounding-sized
+    change: one prefill against the same prefill with the embedding table
+    scaled by (1 + 2^-9 N(0, 1)), under half a bf16 step.  48 random layers
+    amplify it; the bf16 decode continuation is read against this."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    table = params["embed"]["table"]
+    noise = 1 + 2**-9 * torch.randn(table.shape, generator=gen, device=dev)
+    moved = dict(params, embed={"table": (table.float() * noise).to(table.dtype)})
+    del noise
+    a, _ = T.prefill(params, {"tokens": tokens}, cfg, S)
+    b, _ = T.prefill(moved, {"tokens": tokens}, cfg, S)
+    a, b = a.float(), b.float()
+    log(f"[14] mamba2-1.3b {cfg.dtype} noise floor: {B}x{S} prefill against the same with the "
+        f"embedding scaled by 1 + 2^-9 N(0, 1): logits rel L2 "
+        f"{float((a - b).norm() / b.norm()):.3e}, greedy agreement "
+        f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}")
+    del a, b, moved
+    torch.cuda.empty_cache()
+
+
+def mamba_engine(cfg, params, dev, check: bool) -> float:
+    """mamba2-1.3b through ServeEngine: 8 requests of whole chunks (exact
+    length prefill, same-length prompts batched), 16 new tokens; first tokens
+    against a batch-1 prefill of each prompt (>= 6/8 with ``check``: f32,
+    where batching changes only the summation order), the prefix cache
+    bypassed.  No kernel runs on this path (the reference has no Pallas
+    kernel for the SSD scan).  Returns ms per generated token."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    lens = FAMILY_LENS["mamba2-1.3b"]
+    rng = random.Random(3)
+    prompts = [[rng.randrange(cfg.vocab_size) for _ in range(n)] for n in lens]
+    log(f"[14] mamba2-1.3b {cfg.dtype} ServeEngine: 8 requests, prompts {lens}, 16 new tokens, "
+        f"4 slots")
+    reqs, secs, _, eng = run_engine(f"mamba2 engine {cfg.dtype}", cfg, params, dev, prompts, 16,
+                                    max_slots=4, cache_len=1040, prompt_bucket=32)
+    with torch.no_grad():
+        alone = [int(torch.argmax(T.prefill(params, {"tokens": torch.tensor([p], device=dev)},
+                                            cfg, len(p))[0][0, -1])) for p in prompts]
+    firsts = sum(r.output[0] == a for r, a in zip(reqs, alone))
+    lookups = eng.prefix_hits + eng.prefix_misses
+    log(f"[14] mamba2-1.3b {cfg.dtype} engine: first tokens equal to a batch-1 prefill's "
+        f"{firsts}/8" + (" (bound >= 6/8)" if check else " (not a check)") + f"; "
+        f"{eng.prefill_forwards} prefill, {eng.decode_forwards} decode forwards, prefix cache "
+        f"lookups {lookups} (bypassed)")
+    if (check and firsts < 6) or lookups:
+        raise AssertionError("[14] mamba2-1.3b engine disagrees with a batch-1 prefill, or "
+                             "looked up its prefix cache")
+    return secs / (16 * len(lens)) * 1e3
+
+
+def mamba_serve_batch() -> float:
+    """``serve.py --arch mamba2-1.3b`` batch mode: the prompt length rounded
+    down to whole chunks, 16 tokens a row.  Returns ms per token."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    chunk = get_config("mamba2-1.3b").ssm_chunk
+    argv = ["--arch", "mamba2-1.3b", "--batch", "4", "--prompt-len", "300", "--gen", "16"]
+    log(f"[14] launch/serve.py {' '.join(argv)} (prompts rounded to whole chunks)")
+    metrics = serve.main(argv)
+    log(f"[14] mamba2-1.3b serve.py: prompt {metrics['prompt_len']} tokens, per-token "
+        f"{metrics['per_token_ms']:.2f} ms, prefill {metrics['prefill_seconds']:.3f} s")
+    if (metrics["prompt_len"] != 300 - 300 % chunk
+            or tuple(torch.tensor(metrics["tokens"]).shape) != (4, 16)):
+        raise AssertionError("[14] mamba2-1.3b serve.py: prompt not rounded, or tokens missing")
+    return metrics["per_token_ms"]
+
+
+def families(dev) -> dict[str, dict[str, int]]:
+    """Phase 14: deepseek-moe-16b, mamba2-1.3b, internvl2-2b and whisper-small
+    at full width and depth (random bf16 weights from a seeded generator,
+    one model on the card at a time).  Returns each arch's launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import transformer as T
+
+    card = gpu_name_and_limit()
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    int8 = ("flash, int8 KV", {"attn_kernel": "flash", "quantized_kv": True})
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        total = {name: 0 for name in _build.COUNTERS}
+        cfg = get_config(arch)
+        layers = attention_layers(cfg)
+        lens = FAMILY_LENS[arch]
+        log(f"[14] {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters "
+            f"({T.active_param_count(cfg) / 1e9:.3f} B active) in {cfg.dtype}, {cfg.num_layers} "
+            f"layers ({layers} attention" + (f", {cfg.encoder_layers} encoder" if cfg.is_encdec
+                                              else "") + ")"
+            + (f", hd {cfg.hd}, {cfg.num_heads // cfg.num_kv_heads} query heads per kv head"
+               if layers else ""))
+        params = T.init_model(cfg, seed=0, device=dev)
+        ms = {}
+        if arch == "deepseek-moe-16b":
+            prefill_decode_vs_plain(f"[14] {arch}", cfg, params, dev, ("flash", "block_sparse"))
+            ms["engine"] = 1e3 * zoo_engines(arch, cfg, params, dev, lens, 1024, total, slots=12,
+                                             phase=14)[0]
+            del params
+            torch.cuda.empty_cache()
+            ms["fleet"] = zoo_fleet(arch, layers, dev, total, phase=14)
+        elif arch == "mamba2-1.3b":
+            # the served bf16 model is chaotic at random weights (a change under
+            # half a bf16 step moves its logits by tens of percent), so the
+            # continuation is held in f32 and read in bf16 beside that floor
+            mamba_continuation(cfg, params, dev, 256, check=False)
+            mamba_noise_floor(cfg, params, dev)
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = T.init_model(cfg32, seed=0, device=dev)
+            for S in (256, 512, 1024):
+                mamba_continuation(cfg32, p32, dev, S)
+            mamba_engine(cfg32, p32, dev, check=True)
+            del p32
+            torch.cuda.empty_cache()
+            ms["engine"] = mamba_engine(cfg, params, dev, check=False)
+            del params
+            torch.cuda.empty_cache()
+            ms["serve.py"] = mamba_serve_batch()
+        else:
+            S = 300 if cfg.num_patches else 200  # internvl2's prompts cover its patches
+            prefill_decode_vs_plain(f"[14] {arch}", cfg, params, dev, ("flash", int8), S=S,
+                                    cache_len=512)
+            gen = torch.Generator(device=dev).manual_seed(9)
+            extra = {k: v[0] for k, v in stub_inputs(cfg, 1, gen, dev).items()}
+            cache_len = 1024 if cfg.num_patches else 256  # whisper's prompts are short
+            ms["engine"] = 1e3 * zoo_engines(arch, cfg, params, dev, lens, cache_len, total,
+                                             runs=ENGINE_RUNS[:2], extra=extra, phase=14)[0]
+            del params
+            torch.cuda.empty_cache()
+            ms["serve.py"] = zoo_serve_batch(arch, 4, dev, total, phase=14,
+                                             S=256 if cfg.num_patches else 200)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[14] {arch} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
+            f"{capacity / 2**30:.2f} GiB; ms/token "
+            f"{', '.join(f'{k} {v:.2f}' for k, v in ms.items())}; "
+            f"{time.perf_counter() - t0:.1f} s; launches "
+            f"{ {k: v for k, v in total.items() if v} }")
+        out[arch] = total
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--turns", metavar="PARENT_ROOT",
                     help="instead of the phases: time the attention and decode rows of the "
@@ -2346,11 +2714,12 @@ def main(argv=None) -> int:
         served = timed(12, lambda: train_and_serve(dev))
         for k in ("fused_encode", "fused_mix"):
             launches[k] = launches.get(k, 0) + served[k]
-    if 13 in phases:
-        for arch, counts in timed(13, lambda: model_zoo(dev)).items():
-            for k in SERVING_KERNELS:
-                row = zoo_row(arch, k)
-                launches[row] = launches.get(row, 0) + counts[k]
+    for phase, run in ((13, model_zoo), (14, families)):
+        if phase in phases:
+            for arch, counts in timed(phase, lambda: run(dev)).items():
+                for k in SERVING_KERNELS:
+                    row = zoo_row(arch, k)
+                    launches[row] = launches.get(row, 0) + counts[k]
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

@@ -1,7 +1,8 @@
 """Architecture registry (same names and aliases as ``repro.configs``).
 
-Only the architectures this port runs have a module here; asking for any
-other known architecture raises ``NotImplementedError`` naming the roadmap.
+Only the architectures this port runs have a module here; asking for the
+one that waits (llama4-scout-17b-a16e, more than one card holds) raises
+``NotImplementedError`` naming the roadmap.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ ARCHS = (
 )
 
 #: architectures with a config module (and a model path) in the port
-PORTED = ("qwen3_1_7b", "qwen3_4b", "granite_20b", "command_r_35b", "recurrentgemma_2b")
+PORTED = ("qwen3_1_7b", "qwen3_4b", "granite_20b", "command_r_35b", "recurrentgemma_2b",
+          "deepseek_moe_16b", "mamba2_1_3b", "internvl2_2b", "whisper_small")
 
 #: the name each architecture goes by (``--arch``)
 NAMES = {

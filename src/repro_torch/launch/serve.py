@@ -6,12 +6,18 @@ decode on the consensus model, or a serving fleet.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --reduced --device cpu                         # plain CPU path
 
-``--arch`` takes qwen3-1.7b, qwen3-4b, granite-20b, command-r-35b and the
-RG-LRU hybrid recurrentgemma-2b (``--help`` lists the archs that wait).
+``--arch`` takes every config of the registry but llama4-scout-17b-a16e
+(``--help`` lists them).  Batch mode rounds ``--prompt-len`` to whole
+chunks for mamba2-1.3b and gives whisper-small ``frames`` [B, 1500, 768]
+and internvl2-2b ``patches`` [B, 256, 2048]: stubs of the modality
+frontends, N(0, 0.02²) from the run's seeded generator, as the reference
+CLI draws them.
 
-``--fleet N`` serves as a fleet of N nodes: continuous-batching engines
-behind bounded-queue admission control, fed by the seeded Poisson/Zipf load
-generator, reporting p50/p95/p99 TTFT in ticks and ms, tokens/s, queue
+``--fleet N`` serves as a fleet of N nodes (token prompts only, as the
+reference's fleet: whisper-small, which needs ``frames``, and mamba2-1.3b,
+whose prompts must be whole chunks, fail there as they do in the
+reference): continuous-batching engines behind bounded-queue admission
+control, fed by the seeded Poisson/Zipf load generator, reporting p50/p95/p99 TTFT in ticks and ms, tokens/s, queue
 depth and slot occupancy.  With ``--follow`` the fleet polls ``--restore``
 (a step-tagged prefix of checkpoints of the port's serving parameters,
 written by ``repro_torch.checkpoint.save``) and hot-reloads each new
@@ -58,6 +64,20 @@ def _resolve_restore(path: str) -> str:
             "with a .npz suffix, and as a step-tagged prefix)"
         )
     return step_path(path, found)
+
+
+def stub_inputs(cfg, batch: int, gen: torch.Generator, dev) -> dict:
+    """The modality frontends' stub outputs: whisper's ``frames`` [B,
+    encoder_context, d], internvl2's ``patches`` [B, num_patches, d], each
+    N(0, 0.02²) drawn from ``gen`` (frames first)."""
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn(batch, cfg.encoder_context, cfg.d_model, generator=gen,
+                                    device=dev) * 0.02
+    if cfg.num_patches > 0:
+        out["patches"] = torch.randn(batch, cfg.num_patches, cfg.d_model, generator=gen,
+                                     device=dev) * 0.02
+    return out
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -213,6 +233,9 @@ def main(argv=None, *, config_overrides: dict | None = None) -> dict:
     if config_overrides:
         cfg = dataclasses.replace(cfg, **config_overrides)
     S = args.prompt_len
+    if cfg.ssm_state:  # whole SSD chunks
+        S = max(S, cfg.ssm_chunk)
+        S -= S % cfg.ssm_chunk
     cache_len = args.cache_len or (S + args.gen)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -225,6 +248,7 @@ def main(argv=None, *, config_overrides: dict | None = None) -> dict:
     if args.fleet:
         return _run_fleet(args, cfg, params, dev)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, S), generator=gen, device=dev)
+    batch = {"tokens": tokens, **stub_inputs(cfg, args.batch, gen, dev)}
 
     prefill = st.make_prefill_step(cfg, cache_len=cache_len)
     decode = st.make_decode_step(cfg)
@@ -235,7 +259,7 @@ def main(argv=None, *, config_overrides: dict | None = None) -> dict:
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     sync()
     t_prefill = time.perf_counter() - t0
 

@@ -94,6 +94,8 @@ def make_trainer(
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
+    """``prefill_step(params, batch)``: ``batch`` holds ``tokens`` and, for
+    whisper / internvl2, ``frames`` / ``patches`` (``serve.stub_inputs``)."""
     def prefill_step(params, batch):
         return T.prefill(params, batch, cfg, cache_len)
 

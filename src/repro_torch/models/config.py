@@ -3,9 +3,7 @@
 
 One ``ModelConfig`` describes any family of the reference: dense GQA
 decoders, fine-grained MoE, Mamba2 SSD, RG-LRU hybrids, encoder-decoder and
-VLM backbones.  The port runs the dense, ``local_attn`` and ``rglru``
-paths; the other families raise ``NotImplementedError`` in
-``models/transformer.py``.
+VLM backbones, all of which the port runs (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -99,6 +97,9 @@ class ModelConfig:
 
     def mixer_for_layer(self, i: int) -> str:
         return self.layer_pattern[i % len(self.layer_pattern)]
+
+    def ffn_is_moe(self, i: int) -> bool:
+        return self.num_experts > 0 and i >= self.first_dense_layers
 
     def reduced(self, layers: int = 2, d_model: int = 256, experts: int = 4) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests."""

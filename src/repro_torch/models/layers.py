@@ -1,5 +1,6 @@
 """Shared transformer layers (PyTorch port of ``repro.models.layers``):
-norms, RoPE, GQA attention (prefill and decode), MLPs, embeddings.
+norms, RoPE, GQA self- and cross-attention (prefill and decode), MLPs,
+embeddings.
 
 Functional style over dicts of tensors, with the reference's layouts:
 activations ``[B, S, d]``; ``wq`` ``[d, H, hd]``, ``wk``/``wv``
@@ -76,7 +77,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ----------------------------------------------------------------- attention
-def init_attention(gen, cfg, device):
+def init_attention(gen, cfg, device, cross: bool = False):
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = cfg.activation_dtype
     p = {
@@ -90,7 +91,7 @@ def init_attention(gen, cfg, device):
         p["bk"] = torch.zeros(KV, hd, dtype=dt, device=device)
         p["bv"] = torch.zeros(KV, hd, dtype=dt, device=device)
         p["bo"] = torch.zeros(d, dtype=dt, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(hd, dtype=dt, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
     return p
@@ -102,17 +103,22 @@ def _qk_normalize(v, scale):
     return (vf * torch.rsqrt(ms + 1e-6) * scale.float()).to(v.dtype)
 
 
-def _project_qkv(params, x, cfg, positions):
+def _project_qkv(params, x, cfg, positions, kv_src=None):
+    """q from ``x``, k and v from ``kv_src`` (cross-attention: no rope) or
+    from ``x`` (self-attention: rope at ``positions``)."""
+    cross = kv_src is not None
+    kv_in = kv_src if cross else x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_in, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_in, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if "q_norm" in params:
         q = _qk_normalize(q, params["q_norm"])
         k = _qk_normalize(k, params["k_norm"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -159,32 +165,40 @@ def _kernel_attention(q, k, v, kernel: str, window: int | None):
 
 
 def apply_attention(params, x, cfg, *, causal: bool = True, window: int | None = None,
-                    return_kv: bool = False):
-    """Causal self-attention for prefill; query-chunked beyond CHUNK_THRESHOLD.
+                    kv_src=None, return_kv: bool = False):
+    """Prefill / training attention; query-chunked beyond CHUNK_THRESHOLD.
 
-    With ``return_kv`` also returns the (rope'd, unrepeated) k and v
-    [B, S, KV, hd], which prefill writes into the cache.
+    ``kv_src`` [B, Sk, d] makes it cross-attention (whisper's decoder over
+    the encoder output: no rope, no mask).  Only causal self-attention takes
+    ``cfg.attn_kernel``; cross and non-causal attention keep the plain path,
+    as the reference dispatches them.  With ``return_kv`` also returns the
+    (rope'd, unrepeated) k and v [B, Sk, KV, hd], which prefill writes into
+    the cache.
     """
     B, S, _ = x.shape
+    cross = kv_src is not None
+    Sk = kv_src.shape[1] if cross else S
     positions = torch.arange(S, device=x.device)
-    q, k0, v0 = _project_qkv(params, x, cfg, positions)
+    q, k0, v0 = _project_qkv(params, x, cfg, positions, kv_src)
     k = _repeat_kv(k0, cfg.num_heads)
     v = _repeat_kv(v0, cfg.num_heads)
     scale = 1.0 / math.sqrt(cfg.hd)
 
     kernel = cfg.attn_kernel
-    out = _kernel_attention(q, k, v, kernel, window) if kernel is not None and causal else None
+    out = None
+    if kernel is not None and causal and not cross:
+        out = _kernel_attention(q, k, v, kernel, window)
     if out is None:
         def mask_for(q_pos):
-            if not causal and window is None:
+            if cross or (not causal and window is None):
                 return None
-            kpos = torch.arange(S, device=x.device)
-            m = torch.ones(q_pos.shape[0], S, dtype=torch.bool, device=x.device)
+            kpos = torch.arange(Sk, device=x.device)
+            m = torch.ones(q_pos.shape[0], Sk, dtype=torch.bool, device=x.device)
             if causal:
                 m &= q_pos[:, None] >= kpos[None, :]
             if window is not None:
                 m &= q_pos[:, None] - kpos[None, :] < window
-            return m.expand(B, q_pos.shape[0], S)
+            return m.expand(B, q_pos.shape[0], Sk)
 
         if S <= CHUNK_THRESHOLD:
             out = _attend(q, k, v, mask_for(torch.arange(S, device=x.device)), scale)
@@ -228,11 +242,24 @@ def row_positions(pos, batch: int, device) -> torch.Tensor:
     return p.expand(batch) if p.numel() == 1 else p
 
 
-def decode_attention(params, x, cache: dict, pos, cfg, *, window: int | None = None):
+def decode_attention(params, x, cache: dict, pos, cfg, *, window: int | None = None,
+                     cross_kv=None):
     """One-token decode.  x: [B, 1, d]; pos: int or [B] long (tokens so far,
     per row).  Writes the new K/V into ``cache`` in place (ring buffer when
-    ``window``) and returns ``(y, cache)``."""
+    ``window``) and returns ``(y, cache)``.  With ``cross_kv`` (whisper: the
+    encoder's K/V [B, Sk, KV, hd], computed at prefill) it attends those on
+    the plain path, as the reference does, and leaves ``cache`` alone."""
     B = x.shape[0]
+    if cross_kv is not None:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+        if "bq" in params:
+            q = q + params["bq"]
+        k, v = (_repeat_kv(t, cfg.num_heads) for t in cross_kv)
+        out = _attend(q, k, v, None, 1.0 / math.sqrt(cfg.hd))
+        y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        if "bo" in params:
+            y = y + params["bo"]
+        return y, cache
     length = cache["k"].shape[1]
     pos = row_positions(pos, B, x.device)
     q, k, v = _project_qkv(params, x, cfg, pos[:, None])
@@ -278,8 +305,8 @@ def decode_attention(params, x, cache: dict, pos, cfg, *, window: int | None = N
 
 
 # ----------------------------------------------------------------------- mlp
-def init_mlp(gen, cfg, device):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg, device, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.activation_dtype
     if cfg.mlp_type == "swiglu":
         return {

@@ -1,5 +1,8 @@
-"""Model assembly (PyTorch port of ``repro.models.transformer``): dense,
-``local_attn`` and ``rglru`` (the RG-LRU hybrid) layers.
+"""Model assembly (PyTorch port of ``repro.models.transformer``): every
+family of the reference.  A layer's mixer is ``attn``, ``local_attn``,
+``rglru`` (the RG-LRU hybrid) or ``mamba2`` (SSD); its FFN is dense or MoE
+(``cfg.ffn_is_moe``); whisper's decoder layers add ``norm_cross`` /
+``cross`` attention over the encoder output.
 
 Parameters are plain dicts of tensors:
 
@@ -7,7 +10,13 @@ Parameters are plain dicts of tensors:
       "embed": {"table": [V, d]},          # tied unembedding
       "layers": [layer_0, ..., layer_{n-1}],
       "final_norm": {"scale": [d]},
+      "encoder": {"layers": [...], "final_norm": {...}},   # whisper only
     }
+
+The modality frontends are stubs, as in the reference: ``batch`` carries
+precomputed ``frames`` [B, encoder_context, d] (whisper's encoder input) or
+``patches`` [B, num_patches, d] (internvl2's, spliced over the first
+``num_patches`` positions) beside the tokens.
 
 The reference stacks repeated pattern blocks for ``jax.lax.scan``; here the
 layers are a Python list in global order (``params_from_jax`` unstacks).
@@ -18,9 +27,12 @@ Entry points: ``prefill(params, batch, cfg, cache_len) -> (logits, cache)``
 and ``decode_step(params, tokens, cache, pos, cfg) -> (logits, cache)``,
 where ``pos`` is an int or a ``[B]`` long tensor (one position per row, as
 the reference engine's per-slot vmap gives).  An ``rglru`` layer's cache
-is ``{h, conv}`` (f32 state, the conv's last inputs), also under
-``quantized_kv``, which quantizes attention caches only.  MoE, mamba2,
-encoder-decoder and VLM families raise ``NotImplementedError``.
+is ``{h, conv}`` and a ``mamba2`` layer's ``{ssm, conv}`` (f32 state, the
+conv's last inputs), also under ``quantized_kv``, which quantizes
+attention caches only.  Whisper's attention caches also hold ``cross_k`` /
+``cross_v`` [B, encoder_context, KV, hd], the encoder's K/V computed once at
+prefill (never quantized).  Decode routes MoE per batch row (the
+reference engine's per-slot vmap), prefill over the whole batch.
 
 Training keeps the reference's own tree, which the decentralized trainer
 stacks per node and gossips leaf by leaf (the chunk plan and the bit counts
@@ -32,6 +44,7 @@ follow its leaves):
       "blocks": [stacked_pos_0, ...],         # leaves [n_blocks, ...]
       "suffix": [layer, ...],                 # num_layers % p remainder
       "final_norm": {"scale": [d]},
+      "encoder": {"blocks": stacked, "final_norm": ...},   # whisper only
     }
 
 ``init_train_params`` builds it, ``forward`` / ``lm_loss`` run it (layer
@@ -54,6 +67,7 @@ from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.layers import (
     apply_attention,
     apply_mlp,
@@ -76,6 +90,14 @@ from repro_torch.models.rglru import (
     init_rglru,
     init_rglru_cache,
 )
+from repro_torch.models.ssm import (
+    DT_BIAS_INIT,
+    decode_mamba2,
+    dims,
+    init_mamba2,
+    init_mamba2_cache,
+    mamba2_scan,
+)
 
 __all__ = [
     "abstract_train_params",
@@ -87,24 +109,20 @@ __all__ = [
     "prefill",
     "decode_step",
     "param_count",
+    "active_param_count",
     "params_from_jax",
 ]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unported = []
-    if cfg.num_experts > 0:
-        unported.append("MoE")
-    mixers = {cfg.mixer_for_layer(i) for i in range(cfg.num_layers)}
-    unported += sorted(mixers & {"mamba2"})
-    if cfg.is_encdec:
-        unported.append("encoder-decoder")
-    if cfg.num_patches > 0:
-        unported.append("VLM")
-    if unported:
+    """Refuse a config of an architecture that waits (llama4-scout-17b-a16e:
+    about 109 B parameters, more than one card holds, waits for the
+    multi-GPU wire)."""
+    base = cfg.name.removesuffix("-smoke")
+    if base in configs.waiting():
         ported = ", ".join(configs.NAMES[n] for n in configs.PORTED)
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not yet ported to repro_torch; see ROADMAP.md "
+            f"{cfg.name}: not yet ported to repro_torch; see ROADMAP.md "
             f"(ported: {ported}; not yet: {', '.join(configs.waiting())})"
         )
 
@@ -117,6 +135,18 @@ def _pattern_split(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 # -------------------------------------------------------------------- init
+def _init_layer(gen, cfg: ModelConfig, dev, kind: str, moe: bool, cross: bool) -> dict:
+    mixer = {"rglru": init_rglru, "mamba2": init_mamba2}.get(kind, init_attention)
+    layer = {"norm1": init_norm(cfg, dev), "mixer": mixer(gen, cfg, dev)}
+    if cross:
+        layer["norm_cross"] = init_norm(cfg, dev)
+        layer["cross"] = init_attention(gen, cfg, dev, cross=True)
+    if cfg.d_ff > 0 or moe:
+        layer["norm2"] = init_norm(cfg, dev)
+        layer["ffn"] = init_moe(gen, cfg, dev) if moe else init_mlp(gen, cfg, dev)
+    return layer
+
+
 def init_model(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | None = None,
                device="cuda"):
     """Random weights (normal / sqrt(fan_in), ones for norms) from a seeded
@@ -124,28 +154,39 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | 
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
-    layers = []
-    for i in range(cfg.num_layers):
-        mixer = init_rglru if cfg.mixer_for_layer(i) == "rglru" else init_attention
-        layer = {"norm1": init_norm(cfg, dev), "mixer": mixer(gen, cfg, dev)}
-        if cfg.d_ff > 0:
-            layer["norm2"] = init_norm(cfg, dev)
-            layer["ffn"] = init_mlp(gen, cfg, dev)
-        layers.append(layer)
-    return {"embed": init_embedding(gen, cfg, dev), "layers": layers,
+    layers = [_init_layer(gen, cfg, dev, cfg.mixer_for_layer(i), cfg.ffn_is_moe(i), cfg.is_encdec)
+              for i in range(cfg.num_layers)]
+    params = {"embed": init_embedding(gen, cfg, dev), "layers": layers,
+              "final_norm": init_norm(cfg, dev)}
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": [_init_layer(gen, cfg, dev, "attn", False, False)
+                       for _ in range(cfg.encoder_layers)],
             "final_norm": init_norm(cfg, dev)}
+    return params
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameter count of the model ``init_model`` builds (no allocation)."""
     total = 0
 
-    def add(shape, init):
+    def add(shape, *_):
         nonlocal total
         total += math.prod(shape)
 
     _map_specs(_train_specs(cfg), add)
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: the top-k routed experts and the
+    shared ones)."""
+    total = param_count(cfg)
+    if cfg.num_experts == 0:
+        return total
+    per_expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+    moe_layers = sum(cfg.ffn_is_moe(i) for i in range(cfg.num_layers))
+    return total - moe_layers * (cfg.num_experts - cfg.experts_per_token) * per_expert
 
 
 # ------------------------------------------------------------------- cache
@@ -157,16 +198,25 @@ def _layer_cache_len(cfg: ModelConfig, kind: str, length: int) -> int:
     return length
 
 
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int, dev) -> dict:
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, dev)
+    if kind == "mamba2":
+        return init_mamba2_cache(cfg, batch, dev)
+    c = init_attn_cache(cfg, batch, _layer_cache_len(cfg, kind, length), dev)
+    if cfg.is_encdec:
+        shape = (batch, cfg.encoder_context, cfg.num_kv_heads, cfg.hd)
+        c["cross_k"] = torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)
+        c["cross_v"] = torch.zeros(shape, dtype=cfg.activation_dtype, device=dev)
+    return c
+
+
 def init_cache(cfg: ModelConfig, batch: int, length: int, device="cuda"):
     """Decode cache for ``length`` context: one dict per layer."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    cache = []
-    for i in range(cfg.num_layers):
-        kind = cfg.mixer_for_layer(i)
-        cache.append(init_rglru_cache(cfg, batch, dev) if kind == "rglru" else
-                     init_attn_cache(cfg, batch, _layer_cache_len(cfg, kind, length), dev))
-    return cache
+    return [_init_layer_cache(cfg, cfg.mixer_for_layer(i), batch, length, dev)
+            for i in range(cfg.num_layers)]
 
 
 # ----------------------------------------------------------------- forward
@@ -176,10 +226,19 @@ def _decode_window(cfg: ModelConfig, kind: str, cache: dict) -> int | None:
     return cache["k"].shape[1] if cfg.long_context_window is not None else None
 
 
+def _ffn(p, x, cfg: ModelConfig, moe: bool, per_row: bool = False):
+    """The layer's FFN on ``norm2(x)`` -> (y, router aux loss)."""
+    h = apply_norm(p["norm2"], x)
+    if moe:
+        return apply_moe(p["ffn"], h, cfg, per_row=per_row)
+    return apply_mlp(p["ffn"], h), None
+
+
 def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     """One-token decode.  tokens: [B, 1]; pos: int or [B] long (context
     length so far, per row).  Returns (logits [B, 1, V], cache) with the
-    cache updated in place."""
+    cache updated in place.  MoE layers route each row on its own (the
+    capacity of one token), as the reference engine's per-slot decode does."""
     x = embed(params["embed"], tokens).to(cfg.activation_dtype)
     pos = row_positions(pos, x.shape[0], x.device)
     for i, (p, c) in enumerate(zip(params["layers"], cache)):
@@ -187,12 +246,18 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
         h = apply_norm(p["norm1"], x)
         if kind == "rglru":
             y, _ = decode_rglru(p["mixer"], h, c, cfg)
+        elif kind == "mamba2":
+            y, _ = decode_mamba2(p["mixer"], h, c, cfg)
         else:
             y, _ = decode_attention(p["mixer"], h, c, pos, cfg,
                                     window=_decode_window(cfg, kind, c))
         x = x + y
+        if "cross" in p:
+            y, _ = decode_attention(p["cross"], apply_norm(p["norm_cross"], x), c, pos, cfg,
+                                    cross_kv=(c["cross_k"], c["cross_v"]))
+            x = x + y
         if "ffn" in p:
-            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
+            x = x + _ffn(p, x, cfg, cfg.ffn_is_moe(i), per_row=True)[0]
     x = apply_norm(params["final_norm"], x)
     return unembed(params["embed"], x), cache
 
@@ -225,22 +290,52 @@ def _store_prompt(c: dict, k: torch.Tensor, v: torch.Tensor) -> None:
             dst.copy_(torch.roll(src[:, S - L:].to(dst.dtype), S % L, dims=1))
 
 
+def _encode(layers, final_norm, frames, cfg: ModelConfig):
+    """Whisper's encoder over precomputed frame embeddings (the conv
+    frontend is a stub): non-causal self-attention layers, plain attention
+    (only causal self-attention takes a kernel, as in the reference)."""
+    x = frames.to(cfg.activation_dtype)
+    for p in layers:
+        x = x + apply_attention(p["mixer"], apply_norm(p["norm1"], x), cfg, causal=False)
+        x = x + _ffn(p, x, cfg, False)[0]
+    return apply_norm(final_norm, x)
+
+
+def _fuse_inputs(params, batch, cfg: ModelConfig):
+    """Token embedding and the modality inputs -> (x, encoder output or
+    None).  internvl2's patches replace the first ``num_patches`` positions,
+    as the reference concatenates them."""
+    x = embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
+    enc_out = None
+    if cfg.is_encdec:
+        enc = params["encoder"]
+        enc_out = _encode(enc["layers"], enc["final_norm"], batch["frames"], cfg)
+    if cfg.num_patches > 0 and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x[:, cfg.num_patches:]], dim=1)
+    return x, enc_out
+
+
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Full forward over the prompt that also returns a primed decode cache.
 
-    batch["tokens"]: [B, S <= cache_len].  Attention layers write the
-    prompt's K/V into their caches, recurrent layers their final state.
-    Returns (logits [B, S, V], cache).
+    batch["tokens"]: [B, S <= cache_len] (and ``frames`` / ``patches`` for
+    whisper / internvl2).  Attention layers write the prompt's K/V into their
+    caches (whisper's also the encoder's K/V), recurrent layers their final
+    state.  MoE layers route all ``B * S`` tokens together, pad rows and
+    positions included, as the reference's prefill does.  Returns (logits
+    [B, S, V], cache).
     """
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed(params["embed"], tokens).to(cfg.activation_dtype)
-    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    x, enc_out = _fuse_inputs(params, batch, cfg)
+    cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device)
     for i, (p, c) in enumerate(zip(params["layers"], cache)):
         kind = cfg.mixer_for_layer(i)
         h = apply_norm(p["norm1"], x)
-        if kind == "rglru":  # the state after the last prompt token
-            y, state = apply_rglru(p["mixer"], h, cfg, return_state=True)
+        if kind in ("rglru", "mamba2"):  # the state after the last prompt token
+            if kind == "rglru":
+                y, state = apply_rglru(p["mixer"], h, cfg, return_state=True)
+            else:
+                y, state = mamba2_scan(p["mixer"], h, cfg, return_state=True)
             for name, t in state.items():
                 c[name].copy_(t)
         else:
@@ -249,8 +344,14 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
                                         return_kv=True)
             _store_prompt(c, k, v)
         x = x + y
+        if "cross" in p:
+            y, (k, v) = apply_attention(p["cross"], apply_norm(p["norm_cross"], x), cfg,
+                                        causal=False, kv_src=enc_out, return_kv=True)
+            c["cross_k"].copy_(k)
+            c["cross_v"].copy_(v)
+            x = x + y
         if "ffn" in p:
-            x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
+            x = x + _ffn(p, x, cfg, cfg.ffn_is_moe(i))[0]
     x = apply_norm(params["final_norm"], x)
     return unembed(params["embed"], x), cache
 
@@ -285,7 +386,8 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
 
     Stacked ``blocks[pos]`` leaves [n_blocks, ...] unstack into global layer
     ``pre + b * p_len + pos``; ``prefix`` and ``suffix`` layers keep their
-    places.
+    places; whisper's stacked ``encoder.blocks`` unstack into
+    ``encoder.layers``.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -304,51 +406,90 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
                 layers[pre + b * p_len + pos] = _map_tree(stacked, lambda a, b=b: _to_tensor(a[b], dev))
     for s, p in enumerate(tree.get("suffix", [])):
         layers[pre + nb * p_len + s] = _map_tree(p, lambda a: _to_tensor(a, dev))
-    return {
+    params = {
         "embed": _map_tree(tree["embed"], lambda a: _to_tensor(a, dev)),
         "layers": layers,
         "final_norm": _map_tree(tree["final_norm"], lambda a: _to_tensor(a, dev)),
     }
+    if cfg.is_encdec:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [_map_tree(enc["blocks"], lambda a, b=b: _to_tensor(a[b], dev))
+                       for b in range(cfg.encoder_layers)],
+            "final_norm": _map_tree(enc["final_norm"], lambda a: _to_tensor(a, dev))}
+    return params
 
 
 # ------------------------------------------------------------- training
-def _layer_specs(cfg: ModelConfig, kind: str) -> dict:
-    """One layer's parameters as (shape, fan_in | "ones" | "zeros" | "lamb")."""
-    d, H, KV, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
+#: spec inits filled with one value (f32 leaves of the recurrent mixers)
+_FILL = {"lamb": LAMB_INIT, "dt_bias": DT_BIAS_INIT}
+F32 = torch.float32
 
-    def norm():
-        p = {"scale": ((d,), "ones")}
-        if cfg.norm_type == "layernorm":
-            p["bias"] = ((d,), "zeros")
-        return p
 
+def _norm_specs(cfg: ModelConfig) -> dict:
+    p = {"scale": ((cfg.d_model,), "ones")}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = ((cfg.d_model,), "zeros")
+    return p
+
+
+def _mlp_specs(cfg: ModelConfig, f: int) -> dict:
+    d = cfg.d_model
+    if cfg.mlp_type == "swiglu":
+        return {"w_gate": ((d, f), d), "w_up": ((d, f), d), "w_down": ((f, d), f)}
+    ffn = {"w1": ((d, f), d), "w2": ((f, d), f)}
+    if cfg.use_bias:
+        ffn.update(b1=((f,), "zeros"), b2=((d,), "zeros"))
+    return ffn
+
+
+def _attention_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = {"wq": ((d, H, hd), d), "wk": ((d, KV, hd), d), "wv": ((d, KV, hd), d),
+         "wo": ((H, hd, d), H * hd)}
+    if cfg.use_bias:
+        p.update(bq=((H, hd), "zeros"), bk=((KV, hd), "zeros"), bv=((KV, hd), "zeros"),
+                 bo=((d,), "zeros"))
+    if cfg.qk_norm and not cross:
+        p.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
+    return p
+
+
+def _layer_specs(cfg: ModelConfig, kind: str, moe: bool = False, cross: bool = False) -> dict:
+    """One layer's parameters as (shape, fan_in | "ones" | "zeros" | "lamb" |
+    "dt_bias"[, dtype]); the dtype defaults to the activation dtype."""
+    d = cfg.d_model
     if kind == "rglru":
         dr, W = cfg.rglru_width or d, CONV_WIDTH
         mixer = {"w_gate_branch": ((d, dr), d), "w_in": ((d, dr), d), "conv_w": ((W, dr), W),
                  "conv_b": ((dr,), "zeros"), "w_a": ((dr, dr), dr), "w_x": ((dr, dr), dr),
-                 "lamb": ((dr,), "lamb"), "w_out": ((dr, d), dr)}
+                 "lamb": ((dr,), "lamb", F32), "w_out": ((dr, d), dr)}
+    elif kind == "mamba2":
+        di, H, N, conv_ch = dims(cfg)
+        W = cfg.ssm_conv_width
+        mixer = {"in_proj": ((d, 2 * di + 2 * N + H), d), "conv_w": ((W, conv_ch), W),
+                 "conv_b": ((conv_ch,), "zeros"), "A_log": ((H,), "zeros", F32),
+                 "D": ((H,), "ones", F32), "dt_bias": ((H,), "dt_bias", F32),
+                 "norm_scale": ((di,), "ones"), "out_proj": ((di, d), di)}
     else:
-        mixer = {"wq": ((d, H, hd), d), "wk": ((d, KV, hd), d), "wv": ((d, KV, hd), d),
-                 "wo": ((H, hd, d), H * hd)}
-        if cfg.use_bias:
-            mixer.update(bq=((H, hd), "zeros"), bk=((KV, hd), "zeros"),
-                         bv=((KV, hd), "zeros"), bo=((d,), "zeros"))
-        if cfg.qk_norm:
-            mixer.update(q_norm=((hd,), "ones"), k_norm=((hd,), "ones"))
-    layer = {"norm1": norm(), "mixer": mixer}
-    if f > 0:
-        if cfg.mlp_type == "swiglu":
-            ffn = {"w_gate": ((d, f), d), "w_up": ((d, f), d), "w_down": ((f, d), f)}
-        else:
-            ffn = {"w1": ((d, f), d), "w2": ((f, d), f)}
-            if cfg.use_bias:
-                ffn.update(b1=((f,), "zeros"), b2=((d,), "zeros"))
-        layer.update(norm2=norm(), ffn=ffn)
+        mixer = _attention_specs(cfg)
+    layer = {"norm1": _norm_specs(cfg), "mixer": mixer}
+    if cross:
+        layer.update(norm_cross=_norm_specs(cfg), cross=_attention_specs(cfg, cross=True))
+    if moe:
+        E, f = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+        ffn = {"router": ((d, E), d, F32), "w_gate": ((E, d, f), d), "w_up": ((E, d, f), d),
+               "w_down": ((E, f, d), f)}
+        if cfg.num_shared_experts > 0:
+            ffn["shared"] = _mlp_specs(cfg, f * cfg.num_shared_experts)
+        layer.update(norm2=_norm_specs(cfg), ffn=ffn)
+    elif cfg.d_ff > 0:
+        layer.update(norm2=_norm_specs(cfg), ffn=_mlp_specs(cfg, cfg.d_ff))
     return layer
 
 
 def _is_spec(x) -> bool:
-    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+    return isinstance(x, tuple) and len(x) in (2, 3) and isinstance(x[0], tuple)
 
 
 def _map_specs(tree, fn):
@@ -359,73 +500,85 @@ def _map_specs(tree, fn):
     return [_map_specs(v, fn) for v in tree]
 
 
+def _stacked(spec, n: int):
+    return _map_specs(spec, lambda shape, *rest: ((n,) + shape, *rest))
+
+
 def _train_specs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
     pre, nb, suf = _pattern_split(cfg)
     p_len = len(cfg.layer_pattern)
 
     def layer(i):
-        return _layer_specs(cfg, cfg.mixer_for_layer(i))
+        return _layer_specs(cfg, cfg.mixer_for_layer(i), cfg.ffn_is_moe(i), cfg.is_encdec)
 
     specs = {"embed": {"table": ((cfg.vocab_size, cfg.d_model), cfg.d_model)}}
     if pre:
         specs["prefix"] = [layer(i) for i in range(pre)]
     if nb:
-        specs["blocks"] = [_map_specs(layer(pre + pos), lambda shape, init: ((nb,) + shape, init))
-                           for pos in range(p_len)]
+        specs["blocks"] = [_stacked(layer(pre + pos), nb) for pos in range(p_len)]
     if suf:
         specs["suffix"] = [layer(pre + nb * p_len + s) for s in range(suf)]
-    specs["final_norm"] = {"scale": ((cfg.d_model,), "ones")}
-    if cfg.norm_type == "layernorm":
-        specs["final_norm"]["bias"] = ((cfg.d_model,), "zeros")
+    specs["final_norm"] = _norm_specs(cfg)
+    if cfg.is_encdec:
+        specs["encoder"] = {"blocks": _stacked(_layer_specs(cfg, "attn"), cfg.encoder_layers),
+                            "final_norm": _norm_specs(cfg)}
     return specs
 
 
 def init_train_params(cfg: ModelConfig, *, seed: int = 0,
                       generator: torch.Generator | None = None, device="cuda"):
     """Random weights in the reference's training tree (normal / sqrt(fan_in),
-    ones for norm scales, zeros for biases) from a seeded ``torch.Generator``
-    on ``device``."""
+    ones for norm scales, zeros for biases; the f32 leaves as the reference
+    initialises them) from a seeded ``torch.Generator`` on ``device``."""
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.activation_dtype
 
-    def make(shape, init):
+    def make(shape, init, dtype=cfg.activation_dtype):
         if init == "ones":
-            return torch.ones(shape, dtype=dt, device=dev)
+            return torch.ones(shape, dtype=dtype, device=dev)
         if init == "zeros":
-            return torch.zeros(shape, dtype=dt, device=dev)
-        if init == "lamb":  # the RG-LRU's f32 decay parameter
-            return torch.full(shape, LAMB_INIT, dtype=torch.float32, device=dev)
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if init in _FILL:
+            return torch.full(shape, _FILL[init], dtype=dtype, device=dev)
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * (1.0 / math.sqrt(init))).to(dt)
+        return (w * (1.0 / math.sqrt(init))).to(dtype)
 
     return _map_specs(_train_specs(cfg), make)
 
 
 def abstract_train_params(cfg: ModelConfig):
     """The training tree as shapes only (meta tensors, nothing allocated)."""
-    dt = cfg.activation_dtype
-    return _map_specs(_train_specs(cfg), lambda shape, init: torch.empty(
-        shape, dtype=torch.float32 if init == "lamb" else dt, device="meta"))
+    return _map_specs(_train_specs(cfg), lambda shape, init, dtype=cfg.activation_dtype:
+                      torch.empty(shape, dtype=dtype, device="meta"))
 
 
-def _train_layer(p, x, cfg: ModelConfig, kind: str):
+def _train_layer(p, x, cfg: ModelConfig, kind: str, moe: bool, enc_out):
+    """One layer of the training forward -> (x, router aux loss or None)."""
     h = apply_norm(p["norm1"], x)
     if kind == "rglru":
         x = x + apply_rglru(p["mixer"], h, cfg)
+    elif kind == "mamba2":
+        x = x + mamba2_scan(p["mixer"], h, cfg, return_state=False)[0]
     else:
         window = cfg.sliding_window if kind == "local_attn" else None
         x = x + apply_attention(p["mixer"], h, cfg, causal=True, window=window)
+    if "cross" in p:
+        x = x + apply_attention(p["cross"], apply_norm(p["norm_cross"], x), cfg, causal=False,
+                                kv_src=enc_out)
+    aux = None
     if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x))
-    return x
+        y, aux = _ffn(p, x, cfg, moe)
+        x = x + y
+    return x, aux
 
 
-def _train_block(x, layers, cfg: ModelConfig, kinds):
-    for p, kind in zip(layers, kinds):
-        x = _train_layer(p, x, cfg, kind)
-    return x
+def _train_block(x, aux, layers, cfg: ModelConfig, kinds, moes, enc_out):
+    for p, kind, moe in zip(layers, kinds, moes):
+        x, a = _train_layer(p, x, cfg, kind, moe, enc_out)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _layer_at(unbound, b: int):
@@ -437,7 +590,9 @@ def _layer_at(unbound, b: int):
 
 def forward(params, batch, cfg: ModelConfig):
     """Training/eval forward over the training tree.  batch: {"tokens":
-    [B, S]}.  Returns (logits [B, S, V], aux_loss), aux 0 for dense models."""
+    [B, S]} (and ``frames`` / ``patches``).  Returns (logits [B, S, V],
+    aux_loss): the router aux loss summed over the MoE layers, 0 for models
+    without them."""
     if cfg.attn_kernel is not None:
         raise NotImplementedError(
             f"training with attn_kernel={cfg.attn_kernel!r}: backward kernels not yet ported "
@@ -446,11 +601,24 @@ def forward(params, batch, cfg: ModelConfig):
     _check_supported(cfg)
     pre, nb, suf = _pattern_split(cfg)
     p_len = len(cfg.layer_pattern)
-    x = embed(params["embed"], batch["tokens"]).to(cfg.activation_dtype)
+    fused = params
+    if cfg.is_encdec:  # the stacked encoder as a list of layers
+        enc = _map_tree(params["encoder"]["blocks"], lambda a: a.unbind(0))
+        fused = dict(params, encoder={"layers": [_layer_at(enc, b)
+                                                 for b in range(cfg.encoder_layers)],
+                                      "final_norm": params["encoder"]["final_norm"]})
+    x, enc_out = _fuse_inputs(fused, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(p, x, aux, i):
+        return _train_block(x, aux, [p], cfg, [cfg.mixer_for_layer(i)], [cfg.ffn_is_moe(i)],
+                            enc_out)
+
     for i, p in enumerate(params.get("prefix", [])):
-        x = _train_layer(p, x, cfg, cfg.mixer_for_layer(i))
+        x, aux = run(p, x, aux, i)
     if nb > 0:
         kinds = [cfg.mixer_for_layer(pre + pos) for pos in range(p_len)]
+        moes = [cfg.ffn_is_moe(pre + pos) for pos in range(p_len)]
         # unbind once: its backward stacks the layers' gradients in one pass,
         # where indexing leaf[b] per block would add a full-size zero-padded
         # gradient per layer (quadratic in depth)
@@ -458,19 +626,25 @@ def forward(params, batch, cfg: ModelConfig):
         for b in range(nb):
             layers = [_layer_at(u, b) for u in unbound]
             # remat: backward recomputes the block's activations
-            x = checkpoint(_train_block, x, layers, cfg, kinds, use_reentrant=False)
+            x, aux = checkpoint(_train_block, x, aux, layers, cfg, kinds, moes, enc_out,
+                                use_reentrant=False)
     for s, p in enumerate(params.get("suffix", [])):
-        x = _train_layer(p, x, cfg, cfg.mixer_for_layer(pre + nb * p_len + s))
+        x, aux = run(p, x, aux, pre + nb * p_len + s)
     x = apply_norm(params["final_norm"], x)
-    return unembed(params["embed"], x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params["embed"], x), aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig, rng=None):
-    """Next-token cross entropy (f32), masking pad positions (``loss_mask``)."""
+    """Next-token cross entropy (f32), masking pad positions (``loss_mask``)
+    and internvl2's patch positions, plus ``router_aux_weight`` times the
+    router aux loss."""
     logits, aux = forward(params, batch, cfg)
     targets = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1].float()
     mask = torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
+    if cfg.num_patches > 0:
+        pos = torch.arange(targets.shape[1], device=logits.device)
+        mask = mask * (pos[None, :] >= cfg.num_patches).float()
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"][:, 1:]
     logz = torch.logsumexp(logits, dim=-1)

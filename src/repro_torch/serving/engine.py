@@ -17,12 +17,18 @@ ticks and generated tokens -- and only save host and device time:
   by ``(bucket, quantized_kv, prompt)``, LRU-bounded, invalidated when
   ``engine.params`` is reassigned (hot reload), bypassed for windowed /
   recurrent archs (their exact-length prefill makes a cached row
-  position-dependent);
+  position-dependent) and with ``extra_inputs`` (the prompt alone does not
+  key the forward);
 * batched prefill (``batched_prefill``): the same-bucket requests admitted
   in one tick run as one forward, batch padded to a power of two;
 * active-slot decode (``active_decode``): below full occupancy the decode
   gathers the active slots (padded to a power of two) instead of decoding
   the whole pool.
+
+``extra_inputs`` (whisper's ``frames`` [encoder_context, d], internvl2's
+``patches`` [num_patches, d]) go to every prefill, broadcast over its
+batch rows, pad rows included.  mamba2 prompts must be whole multiples of
+``ssm_chunk`` (the reference asserts it).
 
 ``fastpath=False`` with the levers defaulted is the reference's pre-cache
 engine: one batch-1 prefill per request, whole-pool decode, no prefix
@@ -130,11 +136,9 @@ class ServeEngine:
         max_prefill_programs: int = 32,  # unused: no program cache
         device="cuda",
     ):
-        if extra_inputs:
-            raise NotImplementedError(
-                "extra_inputs (audio / VLM) are not yet ported to repro_torch; see ROADMAP.md"
-            )
         self.device = resolve_device(device)
+        self.extra_inputs = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in (extra_inputs or {}).items()}
         self.cfg = cfg
         self.max_slots = max_slots
         self.cache_len = cache_len
@@ -178,7 +182,8 @@ class ServeEngine:
         self._windowed = ("local_attn" in mixers) or (
             cfg.long_context_window is not None and cache_len > cfg.long_context_window
         )
-        self._sig = (repr(cfg), cache_len, str(self.device))
+        extras = tuple(sorted((k, tuple(v.shape)) for k, v in self.extra_inputs.items()))
+        self._sig = (repr(cfg), cache_len, str(self.device), extras)
 
     # ------------------------------------------------------------- params
     @property
@@ -227,6 +232,9 @@ class ServeEngine:
     def _bucket_for(self, req: Request) -> int:
         plen = len(req.prompt)
         if self._recurrent or self._windowed:
+            if self.cfg.ssm_state and plen % self.cfg.ssm_chunk:
+                raise ValueError(f"mamba2 prompts must be multiples of ssm_chunk="
+                                 f"{self.cfg.ssm_chunk}; got {plen} tokens")
             return plen
         return min(_round_up(plen, self.prompt_bucket), self.cache_len)
 
@@ -246,7 +254,8 @@ class ServeEngine:
         bucket as one batched prefill each (with ``batched_prefill``), else
         one batch-1 prefill each in admission order."""
         hits, misses = [], []
-        cacheable = self._prefix_max > 0 and not (self._recurrent or self._windowed)
+        cacheable = (self._prefix_max > 0 and not (self._recurrent or self._windowed)
+                     and not self.extra_inputs)
         for req, slot in pairs:
             req.admit_tick = self._steps
             req.status = "active"
@@ -289,8 +298,9 @@ class ServeEngine:
             toks[r, :plen] = req.prompt
             last[r] = plen - 1
         self._first_use("prefill_traces", "prefill", bucket, bpad)
-        logits, cache_b = T.prefill(self.params, {"tokens": self._tensor(toks)}, self.cfg,
-                                    cache_len=self.cache_len)
+        batch = {"tokens": self._tensor(toks),
+                 **{k: v.expand(bpad, *v.shape) for k, v in self.extra_inputs.items()}}
+        logits, cache_b = T.prefill(self.params, batch, self.cfg, cache_len=self.cache_len)
         self.prefill_forwards += 1
         # first generated token per row: argmax at its last REAL position
         firsts = torch.argmax(logits[torch.arange(bpad, device=self.device),

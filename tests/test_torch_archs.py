@@ -1,6 +1,9 @@
 """The model zoo's configs in repro_torch against the JAX package: qwen3-4b,
-granite-20b (MQA, 48 query heads on one kv head), command-r-35b and the
-RG-LRU hybrid recurrentgemma-2b.
+granite-20b (MQA, 48 query heads on one kv head), command-r-35b, the
+RG-LRU hybrid recurrentgemma-2b, the MoE deepseek-moe-16b, the Mamba2 SSD
+mamba2-1.3b, the VLM internvl2-2b (``patches`` spliced over the first
+positions) and the encoder-decoder whisper-small (``frames`` into its
+encoder).
 
 Reduced widths (``cfg.reduced()``; the hybrid at 3 layers so that it covers
 ``rglru`` and ``local_attn``, as ``tests/test_archs.py``), f32,
@@ -13,7 +16,9 @@ caches' int8 levels equal but for at most two elements one level apart: the
 two sides' f32 K/V differ in the last bits, which can move a value that sits
 on a rounding boundary to the next level (one such element in the hybrid's
 local cache at this seed), and one level of K moves the logits by ~1e-4.
-Engine tokens and tick stamps must be equal.
+Recurrent states and whisper's cross K/V to ``atol 1e-5, rtol 1e-4``; the
+training loss to ``1e-5`` relative.  Engine tokens and tick stamps must be
+equal.
 """
 import dataclasses
 
@@ -33,7 +38,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
 from repro_torch.serving import Request, ServeEngine
 
-ZOO = ("qwen3-4b", "granite-20b", "command-r-35b", "recurrentgemma-2b")
+ZOO = ("qwen3-4b", "granite-20b", "command-r-35b", "recurrentgemma-2b", "deepseek-moe-16b",
+       "mamba2-1.3b", "internvl2-2b", "whisper-small")
 KNOB_OFF = dict(atol=1e-4, rtol=1e-4)
 FLASH = dict(atol=2e-4, rtol=1e-3)
 INT8 = dict(atol=1e-3, rtol=1e-3)
@@ -67,24 +73,54 @@ def _tokens(B, S, seed=0):
     return np.random.default_rng(seed).integers(0, 512, (B, S)).astype(np.int32)
 
 
+def _extras(cfg, B=None, seed=0):
+    """The modality stubs of ``cfg`` as numpy, N(0, 0.02²): whisper's
+    ``frames``, internvl2's ``patches``; [B, n, d], or [n, d] without B."""
+    rng = np.random.default_rng(100 + seed)
+    lead = () if B is None else (B,)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal(lead + (cfg.encoder_context, cfg.d_model)) * 0.02
+    if cfg.num_patches:
+        out["patches"] = rng.standard_normal(lead + (cfg.num_patches, cfg.d_model)) * 0.02
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def _batches(cfg, toks, seed=0):
+    """The same batch for both sides: (JAX, torch)."""
+    extra = _extras(cfg, toks.shape[0], seed)
+    jb = {"tokens": jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in extra.items()}}
+    tb = {"tokens": torch.from_numpy(toks), **{k: torch.from_numpy(v) for k, v in extra.items()}}
+    return jb, tb
+
+
 @pytest.mark.parametrize("arch,kw,tol", [
     *((a, {}, KNOB_OFF) for a in ZOO),
     ("recurrentgemma-2b", dict(quantized_kv=True), INT8),
     ("granite-20b", dict(quantized_kv=True), INT8),
     ("recurrentgemma-2b", dict(attn_kernel="flash"), FLASH),
     ("granite-20b", dict(attn_kernel="flash"), FLASH),
+    ("deepseek-moe-16b", dict(quantized_kv=True), INT8),
+    ("deepseek-moe-16b", dict(attn_kernel="flash"), FLASH),
+    ("internvl2-2b", dict(quantized_kv=True), INT8),
+    ("internvl2-2b", dict(attn_kernel="flash"), FLASH),
+    ("whisper-small", dict(quantized_kv=True), INT8),
+    ("whisper-small", dict(attn_kernel="flash"), FLASH),
 ])
 def test_prefill_and_decode_match_jax(arch, kw, tol):
     """Prefill a 20-token prompt into a 40-slot cache and decode 8 tokens
     (JAX's greedy tokens feed both).  The reduced hybrid's local layers keep
     a 16-row ring, so the prompt wraps it at prefill and decode wraps it
-    again; granite's decode groups all query heads on one kv head."""
+    again; granite's decode groups all query heads on one kv head; mamba2's
+    20 tokens are one SSD chunk of 20; internvl2's first 8 positions are
+    patches; whisper attends 32 encoder frames."""
     jp, tp = _weights(arch)
     jcfg, tcfg = _cfgs(arch, **{k: v for k, v in kw.items() if k != "attn_kernel"})
     tcfg = dataclasses.replace(tcfg, **kw)
     toks = _tokens(2, 20, seed=len(arch))
-    jl, jc = J_PREFILL(jp, {"tokens": jnp.asarray(toks)}, jcfg, 40)
-    tl, tc = TT.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg, 40)
+    jb, tb = _batches(jcfg, toks)
+    jl, jc = J_PREFILL(jp, jb, jcfg, 40)
+    tl, tc = TT.prefill(tp, tb, tcfg, 40)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
     tok = np.asarray(jnp.argmax(jl[:, -1:], -1)).astype(np.int32)
     for i in range(8):
@@ -92,39 +128,69 @@ def test_prefill_and_decode_match_jax(arch, kw, tol):
         tl, tc = TT.decode_step(tp, torch.from_numpy(tok), tc, 20 + i, tcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
         tok = np.asarray(jnp.argmax(jl[:, -1:], -1)).astype(np.int32)
+    pre = jcfg.first_dense_layers  # the stacked blocks start after the prefix
     if jcfg.quantized_kv:  # the int8 caches: equal levels, up to a rounding-boundary flip
         li = 2 if jcfg.family == "hybrid" else 0
         for name in ("k", "v"):
-            diff = np.abs(tc[li][name].numpy().astype(np.int32)
+            diff = np.abs(tc[pre + li][name].numpy().astype(np.int32)
                           - np.asarray(jc["blocks"][li][name][0], np.int32))
             assert diff.max() <= 1 and int((diff > 0).sum()) <= 2, name
-    if jcfg.family == "hybrid":  # the recurrent layers' decode state
-        for name in ("h", "conv"):
-            np.testing.assert_allclose(tc[0][name].numpy(), np.asarray(jc["blocks"][0][name][0]),
-                                       atol=1e-5, rtol=1e-4)
-        assert tc[0]["h"].dtype == torch.float32 and set(tc[0]) == {"h", "conv"}
+    state = {"hybrid": ("h", "conv"), "ssm": ("ssm", "conv")}.get(jcfg.family, ())
+    for name in state:  # the recurrent layers' decode state
+        np.testing.assert_allclose(tc[0][name].numpy(), np.asarray(jc["blocks"][0][name][0]),
+                                   atol=1e-5, rtol=1e-4)
+    if state:
+        assert tc[0][state[0]].dtype == torch.float32 and set(tc[0]) == set(state)
+    if jcfg.is_encdec:  # the encoder's K/V, computed once at prefill, never quantized
+        for i, (k, v) in enumerate(jc["cross_kv"]):
+            for got, want in ((tc[i]["cross_k"], k), (tc[i]["cross_v"], v)):
+                assert got.dtype == torch.float32
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ZOO)
 def test_forward_matches_jax(arch):
-    """The training forward over the reference's own tree (stacked blocks)."""
+    """The training forward over the reference's own tree (stacked blocks),
+    with its router aux loss: summed over the MoE layers, 0 without them."""
     jp, _ = _weights(arch)
     jcfg, tcfg = _cfgs(arch)
-    toks = _tokens(2, 24, seed=3)
-    jl, _ = JT.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)
+    toks = _tokens(2, 32, seed=3)
+    jb, tb = _batches(jcfg, toks, seed=3)
+    jl, jaux = JT.forward(jp, jb, jcfg)
     tree = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
     with torch.no_grad():
-        tl, aux = TT.forward(tree, {"tokens": torch.from_numpy(toks)}, tcfg)
+        tl, aux = TT.forward(tree, tb, tcfg)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **KNOB_OFF)
-    assert float(aux) == 0.0
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    assert (float(aux) > 0) == (jcfg.num_experts > 0)
+
+
+@pytest.mark.parametrize("arch", ZOO[4:])
+def test_lm_loss_matches_jax(arch):
+    """``lm_loss`` on the training tree: the router aux term (deepseek), the
+    patch positions masked (internvl2), the frames through the encoder
+    (whisper); and its gradient is finite on every leaf."""
+    jp, _ = _weights(arch)
+    jcfg, tcfg = _cfgs(arch)
+    toks = _tokens(2, 32, seed=4)
+    jb, tb = _batches(jcfg, toks, seed=4)
+    want = float(JT.lm_loss(jp, jb, jcfg))
+    tree = jax.tree.map(lambda a: torch.from_numpy(np.array(a)).requires_grad_(), jp)
+    loss = TT.lm_loss(tree, tb, tcfg)
+    np.testing.assert_allclose(float(loss.detach()), want, rtol=1e-5)
+    loss.backward()
+    leaves = jax.tree_util.tree_leaves(tree, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)
 
 
 @pytest.mark.parametrize("arch", ZOO)
 def test_param_count_matches_jax(arch):
     """Full width, abstract on both sides (nothing allocated); the training
-    tree's shapes and dtypes are the reference's (``lamb`` f32)."""
+    tree's shapes and dtypes are the reference's (``lamb``, the router,
+    ``A_log``, ``D`` and ``dt_bias`` f32; whisper's stacked encoder)."""
     tcfg = torch_config(arch)
     assert TT.param_count(tcfg) == JT.param_count(jax_config(arch))
+    assert TT.active_param_count(tcfg) == JT.active_param_count(jax_config(arch))
     jcfg = jax_config(arch).reduced(layers=5)  # 1 block + 2 suffix layers for the hybrid
     tree = TT.abstract_train_params(torch_config(arch).reduced(layers=5))
     want = jax.eval_shape(lambda k: JT.init_model(k, jcfg), jax.random.PRNGKey(0))
@@ -169,37 +235,64 @@ def test_restore_jax_params_restores_the_hybrid(tmp_path):
 
 @pytest.mark.parametrize("arch,kw", [("recurrentgemma-2b", {}), ("granite-20b", {}),
                                      ("recurrentgemma-2b", dict(quantized_kv=True)),
-                                     ("granite-20b", dict(quantized_kv=True))])
+                                     ("granite-20b", dict(quantized_kv=True)),
+                                     ("deepseek-moe-16b", {}), ("mamba2-1.3b", {}),
+                                     ("internvl2-2b", {}), ("whisper-small", {}),
+                                     ("whisper-small", dict(quantized_kv=True))])
 def test_engine_matches_jax_engine(arch, kw):
-    """The port's ServeEngine against the JAX engine: the hybrid prefills at
-    exact length (prompts of one length batch together) with its prefix
-    cache off; granite buckets its prompts.  Tokens and tick stamps equal."""
+    """The port's ServeEngine against the JAX engine: the recurrent archs
+    prefill at exact length (prompts of one length batch together; mamba2's
+    whole chunks of 32) with their prefix cache off; the others bucket their
+    prompts; internvl2 and whisper take ``extra_inputs`` (their prefix
+    cache off too); deepseek's prefill routes each padded bucket batch as
+    one group.  Tokens and tick stamps equal."""
     jp, tp = _weights(arch)
     jcfg, tcfg = _cfgs(arch, long_context_window=None, **kw)
     rng = np.random.default_rng(5)
-    prompts = [rng.integers(1, 512, n).tolist() for n in (5, 9, 5, 13, 7, 22, 9)]
-    engine_kw = dict(max_slots=3, cache_len=48, prompt_bucket=8)
+    lens = (32, 64, 32, 96, 32) if jcfg.ssm_state else (5, 9, 5, 13, 7, 22, 9)
+    prompts = [rng.integers(1, 512, n).tolist() for n in lens]
+    extra = _extras(jcfg)
+    engine_kw = dict(max_slots=3, cache_len=128 if jcfg.ssm_state else 48, prompt_bucket=8)
     jreqs = [JRequest(prompt=list(p), max_new_tokens=5) for p in prompts]
     treqs = [Request(prompt=list(p), max_new_tokens=5) for p in prompts]
-    JEngine(jcfg, jp, **engine_kw).run(jreqs)
-    teng = ServeEngine(tcfg, tp, device="cpu", **engine_kw)
+    JEngine(jcfg, jp, extra_inputs={k: jnp.asarray(v) for k, v in extra.items()},
+            **engine_kw).run(jreqs)
+    teng = ServeEngine(tcfg, tp, device="cpu", extra_inputs=extra, **engine_kw)
     teng.run(treqs)
     for j, t in zip(jreqs, treqs):
         assert t.done and t.output == j.output
         assert (t.submit_tick, t.admit_tick, t.finish_tick) == (
             j.submit_tick, j.admit_tick, j.finish_tick)
-    hybrid = jcfg.family == "hybrid"
-    assert teng._recurrent == hybrid and (teng.prefix_hits + teng.prefix_misses == 0) == hybrid
+    recurrent = jcfg.family in ("hybrid", "ssm")
+    assert teng._recurrent == recurrent
+    assert (teng.prefix_hits + teng.prefix_misses == 0) == (recurrent or bool(extra))
 
 
 @pytest.mark.parametrize("arch", ZOO)
 def test_serve_cli_reduced_on_cpu(arch):
     """``launch/serve.py --arch <name> --reduced --device cpu``, batch mode and
-    ``--fleet 2`` (the --no-fastpath twin equal on the tick fields)."""
+    ``--fleet 2`` (the --no-fastpath twin equal on the tick fields).  The
+    fleet passes no extra inputs and draws prompts of any length, as the
+    reference's: whisper-small (no ``frames``) and mamba2-1.3b (prompts not
+    whole chunks) fail there, in the JAX engine as in the port's."""
     argv = ["--arch", arch, "--reduced", "--device", "cpu", "--prompt-len", "10", "--gen", "4"]
     got = tserve.main(argv + ["--batch", "2"])
     assert np.array(got["tokens"]).shape == (2, 4) and got["arch"] == f"{arch}-smoke"
+    assert got["prompt_len"] == (32 if arch == "mamba2-1.3b" else 10)  # whole SSD chunks
     fleet = argv + ["--fleet", "2", "--requests", "8", "--rate", "0.6"]
+    refusal = {"whisper-small": (KeyError, KeyError), "mamba2-1.3b": (AssertionError, ValueError)}
+    if arch in refusal:
+        jerr, terr = refusal[arch]
+        jp, tp = _weights(arch)
+        jcfg, tcfg = _cfgs(arch)
+        with pytest.raises(jerr):
+            JEngine(jcfg, jp, cache_len=32, prompt_bucket=8).run([JRequest(prompt=[1] * 9)])
+        with pytest.raises(terr):
+            ServeEngine(tcfg, tp, cache_len=32, prompt_bucket=8, device="cpu").run(
+                [Request(prompt=[1] * 9)])
+        with pytest.raises(terr):
+            tserve.main(fleet)
+        return
     fast, twin = tserve.main(fleet), tserve.main(fleet + ["--no-fastpath"])
     assert fast["metrics"]["completed"] == fast["offered"] >= 8
     for k in ("completed", "rejected", "shed", "p50_ttft_ticks", "p99_ttft_ticks",
@@ -209,14 +302,16 @@ def test_serve_cli_reduced_on_cpu(arch):
 
 
 def test_unported_arch_names_the_roadmap():
-    """The archs that wait fail at the registry, and a config of a waiting
-    family fails in the model with the lists of ported and waiting archs."""
-    for arch in ("deepseek-moe-16b", "llama4-scout-17b-a16e", "mamba2-1.3b", "whisper-small",
-                 "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            torch_config(arch)
-    cfg = jax_config("mamba2-1.3b").reduced()
+    """The arch that waits (llama4-scout-17b-a16e, more than one card holds)
+    fails at the registry, and its config fails in the model with the lists
+    of ported and waiting archs."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        torch_config("llama4-scout-17b-a16e")
+    cfg = jax_config("llama4-scout-17b-a16e").reduced()
     tcfg = type(torch_config("qwen3-4b"))(**{f.name: getattr(cfg, f.name)
                                              for f in dataclasses.fields(cfg)})
-    with pytest.raises(NotImplementedError, match="recurrentgemma-2b.*not yet: .*mamba2-1.3b"):
+    with pytest.raises(NotImplementedError,
+                       match="whisper-small.*not yet: llama4-scout-17b-a16e.*"):
         TT.init_model(tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TT.abstract_train_params(tcfg)

@@ -181,8 +181,7 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("arch,fragment", [
-    ("deepseek-moe-16b", "MoE"), ("mamba2-1.3b", "mamba2"), ("llama4-scout-17b-a16e", "MoE"),
-    ("whisper-small", "encoder-decoder"), ("internvl2-2b", "VLM"),
+    ("llama4-scout-17b-a16e", "llama4-scout-17b-a16e-smoke: not yet ported"),
 ])
 def test_unported_families_raise(arch, fragment):
     cfg = dataclasses.replace(jax_config(arch).reduced(), dtype="float32")

@@ -160,6 +160,7 @@ def test_unknown_and_unported_configs():
     with pytest.raises(ValueError, match="unknown arch"):
         torch_config("gpt-9")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_config("mamba2-1.3b")
+        torch_config("llama4-scout-17b-a16e")
+    assert torch_config("mamba2_1_3b") == torch_config("mamba2-1.3b")
     assert torch_config("qwen3-4b").name == "qwen3-4b"
     assert torch_config("qwen3-1.7b").activation_dtype == torch.bfloat16

@@ -134,8 +134,12 @@ def test_engine_hot_reload_invalidates_prefix(weights):
     assert engine.prefix_hits == 1
     engine.params = tp
     assert engine.prefix_invalidations == 1 and engine.stats()["prefix_entries"] == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(tcfg, tp, extra_inputs={"frames": np.zeros(3)}, device="cpu")
+    # extra inputs key the forward beside the prompt: the prefix cache stands aside
+    extra = ServeEngine(tcfg, tp, max_slots=1, cache_len=32, prompt_bucket=8, device="cpu",
+                        extra_inputs={"frames": np.zeros(3, np.float32)})
+    for _ in range(2):
+        extra.run([Request(prompt=list(prompt), max_new_tokens=2)])
+    assert extra.prefix_hits + extra.prefix_misses == 0 and extra.stats()["prefix_entries"] == 0
 
 
 def test_serve_batch_mode_on_cpu(tmp_path):
