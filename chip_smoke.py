@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 11,12     # the serving fleet, train and serve
     python3 chip_smoke.py --phases 2,13      # kernels, then the model zoo at full width
     python3 chip_smoke.py --phases 2,14      # kernels, then MoE / SSM / VLM / enc-dec configs
+    python3 chip_smoke.py --phases 1,2,15    # kernels, then the trainer's breadth (15a-15d)
     python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
                                              # and this one in turns (no phases)
 
@@ -68,8 +69,28 @@ Phases (any failure exits non-zero):
      held in f32 and read in bf16 beside the model's own noise floor; the
      engine; ``serve.py``), internvl2-2b with ``patches`` and whisper-small
      with ``frames`` (prefill + decode with flash and int8 KV against the
-     plain path, the engine, ``serve.py``); peak memory and ms/token.
-Phases 4-6, 9, 11, 12, 13 and 14 are the main paths: launch counters are
+     plain path, the engine, ``serve.py``); peak memory and ms/token;
+ 15. the trainer's breadth at full width: (a) ``launch/train.py`` on 4 nodes
+     with 25% dropout over round-robin ring + torus and over one-peer
+     matchings (``kq4b``, the masked round on the quantize / dequantize
+     kernels), then round-robin with block top-k, then 2 nodes with SGD
+     momentum 0.9: each round's mask logged, a dropped node's theta,
+     theta_hat, s and momentum equal bit for bit to a host copy taken
+     before its round, launches = the chunk plan, bits = payload_bits at
+     the schedule's max degree + the dual, one round profiled; (b) gradient tracking with 4 local steps on 2 nodes,
+     fused then packed (launches = 2 lanes x the chunk plan, step-0 losses
+     equal, later steps within 1e-3), peak memory; (c) resume: run A 4
+     rounds, run B 2 rounds with ``--checkpoint``, run C ``--resume`` to 4:
+     C's losses and final theta equal A's (else within two A runs' gap),
+     the checkpoints' seconds and bytes (about 48 GB of free disk needed
+     under the temp directory or the checkout, checked first); (d) the
+     paper's small-model comparisons with the reference's settings in 7
+     processes on the card, beside (c): FT's nine fault-free rows (bits exact against
+     ``BENCH_FT.json``, worst accuracy within 0.05 below), the ksweep anchors
+     (gt@16 above choco@8 and choco@16, its bits within 1.05 x choco@8's),
+     Table 5 on rotated_minority (bits per iteration exact, the reference's
+     worst-accuracy order held, DRFA on the reference's client samples).
+Phases 4-6, 9, 11, 12, 13, 14 and 15 are the main paths: launch counters are
 zeroed just before each run and read just after, and every kernel the run
 goes through must have launched (in phases 11, 13 and 14, once per attention
 layer and model forward).  Phase 2 also checks and times the attention and
@@ -1751,33 +1772,62 @@ GOSSIP_KERNEL_NAMES = ("quantize_kernel", "dequantize_kernel", "fused_encode_ker
                        "fused_mix_kernel", "block_topk_kernel")
 
 
+def _device_events(prof) -> list[tuple[str, int, int, bool]]:
+    """(name, start ns, end ns, is a range annotation) of every event on the
+    card's timeline, read from the profiler's chrome trace (written and
+    parsed in C): building the profiler's Python event tree over every host
+    op of a full-width round takes tens of seconds."""
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(path)
+    trace = trace["traceEvents"] if isinstance(trace, dict) else trace
+    out = [(e["name"], int(e["ts"] * 1e3), int((e["ts"] + e["dur"]) * 1e3),
+            e["cat"] == "gpu_user_annotation")
+           for e in trace if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")]
+    if not out:
+        raise AssertionError("the profiler's chrome trace holds no event on the card")
+    return out
+
+
 def _profile_breakdown(prof, wall_s: float) -> dict:
     """Kernel time of one profiled round, by the trainer's sections (its
     ``record_function`` ranges, whose device-side spans bracket the kernels
-    they launched) and, inside the consensus, gossip kernels vs other ops."""
-    import torch
-
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.events() if e.device_type == cuda]
-    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
-             if e.name in ROUND_SECTIONS}
-    kernels = [e for e in events if e.name not in ROUND_SECTIONS]
+    they launched; a section may recur, as the local steps do) and, inside
+    the consensus, gossip kernels vs other ops."""
+    t0 = time.perf_counter()
+    events = _device_events(prof)
+    spans: dict[str, list] = {}
+    for name, lo, hi, is_range in events:
+        if is_range and name in ROUND_SECTIONS:
+            spans.setdefault(name, []).append((lo, hi))
     busy = {name: 0.0 for name in ROUND_SECTIONS + ("gossip kernels", "outside")}
     by_name: dict[str, list] = {}
-    for e in kernels:
-        ms = e.time_range.elapsed_us() / 1e3
-        section = next((k for k, (lo, hi) in spans.items() if lo <= e.time_range.start < hi),
+    for name, lo, hi, is_range in events:
+        if is_range:
+            continue
+        ms = (hi - lo) / 1e6
+        section = next((k for k, rs in spans.items() if any(a <= lo < b for a, b in rs)),
                        "outside")
         busy[section] += ms
-        if section == "consensus" and any(g in e.name for g in GOSSIP_KERNEL_NAMES):
+        if section == "consensus" and any(g in name for g in GOSSIP_KERNEL_NAMES):
             busy["gossip kernels"] += ms
-        agg = by_name.setdefault(e.name, [0.0, 0])
+        agg = by_name.setdefault(name, [0.0, 0])
         agg[0] += ms
         agg[1] += 1
     total = sum(v for k, v in busy.items() if k != "gossip kernels")
     top = sorted(((v[0], v[1], k) for k, v in by_name.items()), reverse=True)[:8]
     return {"wall_ms": wall_s * 1e3, "busy_ms": total, "busy": busy,
-            "spans_ms": {k: (hi - lo) / 1e3 for k, (lo, hi) in spans.items()}, "top": top}
+            "spans_ms": {k: sum(b - a for a, b in rs) / 1e6 for k, rs in spans.items()},
+            "top": top, "read_s": time.perf_counter() - t0}
 
 
 def train_full_width(dev) -> dict[str, int]:
@@ -1827,7 +1877,7 @@ def train_full_width(dev) -> dict[str, int]:
         torch.cuda.reset_peak_memory_stats()
         prof_out = {}
 
-        def wrap_step(step, run):
+        def wrap_step(step, run, state):
             if step != 1:
                 return run()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1860,7 +1910,8 @@ def train_full_width(dev) -> dict[str, int]:
             f"{[h['consensus_err'] for h in hist]}; lambda_max {[h['lambda_max'] for h in hist]}")
         pb = _profile_breakdown(prof_out["prof"], prof_out["wall"])
         log(f"[9] {name} round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, kernels "
-            f"busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%} of the wall)")
+            f"busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%} of the wall); "
+            f"read in {pb['read_s']:.1f} s")
         log(f"[9] {name} kernel ms by section {({k: round(v, 1) for k, v in pb['busy'].items()})}"
             f"; device span ms by section {({k: round(v, 1) for k, v in pb['spans_ms'].items()})}")
         for ms_, count, key in pb["top"]:
@@ -2628,10 +2679,501 @@ def families(dev) -> dict[str, dict[str, int]]:
     return out
 
 
+# ----------------------------------------------------------------- phase 15
+P15_ARGS = ["--arch", QWEN, "--batch-per-node", "4", "--seq", "128", "--compressor", "kq4b",
+            "--log-every", "1"]
+P15_DROPOUT = "0.25"
+# Table 5 on rotated_minority, the reference's quick run (``python -m
+# benchmarks.run --only T5``, JAX on the CPU): worst-node accuracy
+# (mean of seeds 0 and 1) and bits per gradient iteration of the busiest node
+T5_REFERENCE = {"AD-GDA-GT-K5": (0.796875, 902.4), "AD-GDA": (0.77734375, 2896.0),
+                "DR-DSGD": (0.7470703125, 8704.0), "CHOCO-SGD": (0.70703125, 1616.0),
+                "AD-GDA-K5": (0.6181640625, 579.2), "DRFA": (0.3916015625, 2176.0)}
+# DRFA's client samples in that run (one bitmask of the 10 nodes per round,
+# 60 rounds): lambda never returns to a node it left out, so the first draw
+# decides whether the minority nodes take part at all (seed 0: never, worst
+# accuracy 0.0039; seed 1: yes, 0.7793); the card's run is held on these
+DRFA_REFERENCE_SAMPLES = {
+    0: (668,) * 60,
+    1: (818, 818, 818, 583, 426, 714, 678, 334, 555, 271, 391, 271, 419, 283, 395, 587, 555,
+        395, 675, 115, 91, 651, 803, 803, 79, 279, 295, 787, 803, 79, 171, 647, 87, 587, 451,
+        47, 47, 647, 279, 103, 307, 279, 107, 299, 203, 551, 179, 295, 31, 103, 647, 403, 535,
+        555, 107, 659, 155, 79, 803, 103),
+}
+FT_ACC_BAND = 0.05  # the reference's own band (benchmarks/check_regression.py)
+# processes on the card for 15d, one per host core but the one 15c runs on
+# beside it: 15d's rounds are host-bound
+P15_WORKERS = 7
+
+
+def _round_rows(state):
+    """Per node-stacked leaf of a trainer state: theta, theta_hat, s and the
+    optimizer moments (empty without momentum)."""
+    from repro_torch.tree import leaves
+
+    opt = state.opt
+    return (leaves(state.theta) + leaves(state.consensus.theta_hat)
+            + leaves(state.consensus.s) + [x for part in (opt.mu, opt.nu) for x in part])
+
+
+def _bits(x):
+    """``x`` viewed as integers of its width: equal means equal bit for bit
+    (``torch.equal`` on floats holds -0.0 equal to 0.0 and NaN unequal)."""
+    import torch
+
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+                  [x.element_size()])
+
+
+def _host_rows(rows, i: int, slot: int, pool: dict) -> list:
+    """Row ``i`` of each leaf in ``rows``, copied into one host buffer per
+    ``slot`` (the dropped node's place in its round) that later rounds
+    reuse.  On a card the buffer is page-locked with ``cudaHostRegister``
+    (a fresh pageable copy of a node's 10.3 GB runs at ~3 GB/s), and
+    :func:`_release_rows` unlocks and frees it: the caching host allocator
+    of ``pin_memory=True`` would keep it locked for the phases after."""
+    import torch
+
+    sizes = [x[i].numel() * x.element_size() for x in rows]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 64) * 64)
+    buf = pool.get(slot)
+    if buf is None or buf.numel() < offsets[-1]:
+        _release_rows({slot: pool.pop(slot)} if buf is not None else {})
+        buf = pool[slot] = torch.empty(offsets[-1], dtype=torch.uint8)
+        if torch.cuda.is_available():
+            torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
+                buf.data_ptr(), buf.numel(), 0))
+    return [buf[o:o + n].view(x.dtype).view(x.shape[1:]).copy_(x[i])
+            for x, o, n in zip(rows, offsets, sizes)]
+
+
+def _release_rows(pool: dict) -> None:
+    import torch
+
+    for buf in pool.values():
+        if torch.cuda.is_available():
+            torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(buf.data_ptr()))
+    pool.clear()
+
+
+def _chunk_plan(cfg, m: int) -> int:
+    import torch
+
+    from repro_torch.core.gossip import _scan_plan
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    n = 0
+    for p in leaves(T.abstract_train_params(cfg)):
+        plan = _scan_plan((m,) + tuple(p.shape), int(torch.Size(p.shape).numel()), 1 << 24)
+        n += 1 if plan is None else plan[1]
+    return n
+
+
+def masked_full_width(dev, total) -> dict:
+    """15a: masked rounds at full width -- 4 nodes, 25% dropout, round-robin
+    ring + torus and one-peer matchings with ``kq4b``, round-robin with
+    block top-k on its kernel, and 2 nodes on the ring with SGD momentum 0.9
+    (the moments' revert; 4 nodes' f32 moments do not fit beside the round).
+    Each dropped node's rows are copied to the host before its round and
+    compared with the rows after it bit for bit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import payload_bits
+    from repro_torch.core.topology import make_topology_schedule
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelBlockTopK, KernelQuantization
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    cfg = get_config(QWEN)
+    topk = KernelBlockTopK(0.25, 1024)
+    pinned: dict = {}  # host buffers of the dropped rows, kept across rounds and runs
+    # name, nodes, rounds, schedule spec, extra flags, compressor object
+    runs = (("roundrobin", 4, 4, "roundrobin:ring,torus", [], None),
+            ("matching", 4, 4, "matching:8", [], None),
+            ("block_topk", 4, 4, "roundrobin:ring,torus", [], topk),
+            # the seed drops node 1 in round 2, after two rounds of momentum
+            ("momentum", 2, 3, "ring", ["--momentum", "0.9"], None))
+    out = {}
+    for name, m, steps, spec, extra, comp in runs:
+        n_enc = _chunk_plan(cfg, m)
+        template = [torch.empty((m,) + tuple(p.shape), device="meta")
+                    for p in leaves(T.abstract_train_params(cfg))]
+        argv = P15_ARGS + ["--nodes", str(m), "--steps", str(steps), "--topology-schedule",
+                           spec, "--dropout", P15_DROPOUT] + extra
+        log(f"[15a] launch/train.py {' '.join(argv)}"
+            + (f" with compressor={comp!r} in place of the spec" if comp else ""))
+        sched = make_topology_schedule(spec, m, dropout=float(P15_DROPOUT))
+        want_bits = (payload_bits(comp or KernelQuantization(4), template, sched)
+                     + 32.0 * m * sched.max_degree)
+        expect = ({"block_topk": n_enc} if comp else
+                  {"quantize": m * n_enc, "dequantize": m * n_enc})
+        frozen, prof_out, round_s, copy_s = [], {}, [], []
+
+        def wrap_step(step, run, state):
+            # the round's mask, drawn ahead on a copy of the mask generator
+            gen = torch.Generator()
+            gen.set_state(state.mask_generator.get_state())
+            dropped = [i for i, a in enumerate(sched.mask_at(gen, state.step).tolist())
+                       if a <= 0]
+            t0 = time.perf_counter()
+            saved = {i: _host_rows(_round_rows(state), i, slot, pinned)
+                     for slot, i in enumerate(dropped)}
+            copy_s.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == 1 and name == "roundrobin":  # one profiled round
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    new, aux = run()
+                    torch.cuda.synchronize()
+                    prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            else:
+                new, aux = run()
+                torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            alive = aux["participation"].tolist()
+            if [i for i, a in enumerate(alive) if a == 0] != dropped:
+                raise AssertionError(f"phase 15a {name}: round {step} dropped "
+                                     f"{alive}, the mask generator's copy gave {dropped}")
+            t0 = time.perf_counter()
+            for i, rows in saved.items():
+                same = all(torch.equal(_bits(x[i]), _bits(old.to(x.device)))
+                           for x, old in zip(_round_rows(new), rows))
+                frozen.append((step, i, same))
+            copy_s[-1] += time.perf_counter() - t0
+            del saved
+            return new, aux
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = train.main(argv, wrap_step=wrap_step, compressor=comp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = metrics["history"]
+        masks = [h["participation"] for h in hist]
+        kept = "theta, theta_hat, s" + (", the momentum" if extra else "")
+        log(f"[15a] {name}: masks per round {masks}; dropped nodes' {kept} equal to the "
+            f"host copy bit for bit (step, node, kept): {frozen}; host copies and "
+            f"comparisons {sum(copy_s):.1f} s")
+        log(f"[15a] {name}: launches {({k: v for k, v in counts.items() if v})}; chunk plan "
+            f"{n_enc} encodes per round, expected per round {expect}; peak memory {peak:.2f} GiB; "
+            f"{secs:.1f} s; s per round {[round(x, 3) for x in round_s]} (the host copies "
+            f"aside{'; round 1 profiled' if prof_out else ''})")
+        log(f"[15a] {name}: bits/round {metrics['bits_per_round']:.6e} (payload_bits at the "
+            f"schedule's max degree {sched.max_degree} + the dual: {want_bits:.6e}); realized "
+            f"{[h['bits_realized'] for h in hist]}; losses {[h['losses'] for h in hist]}; "
+            f"consensus error {[h['consensus_err'] for h in hist]}")
+        pb = None
+        if prof_out:
+            pb = _profile_breakdown(prof_out.pop("prof"), prof_out["wall"])
+            log(f"[15a] {name} round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, "
+                f"kernels busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%} of the "
+                f"wall); kernel ms by section {({k: round(v, 1) for k, v in pb['busy'].items()})}"
+                f"; device span ms by section "
+                f"{({k: round(v, 1) for k, v in pb['spans_ms'].items()})}; read in "
+                f"{pb['read_s']:.1f} s")
+            for ms_, count, key in pb["top"]:
+                log(f"[15a]   {ms_:9.2f} ms x{count:<6d} {key[:90]}")
+        for k, per_round in expect.items():
+            if counts[k] != per_round * steps:
+                raise AssertionError(f"phase 15a {name}: {k} launched {counts[k]} times, the "
+                                     f"chunk plan gives {per_round} x {steps}")
+        if not frozen or not all(f[2] for f in frozen):
+            raise AssertionError(f"phase 15a {name}: no node dropped, or a dropped node's "
+                                 f"state moved: {frozen}")
+        if extra and not any(f[0] > 0 for f in frozen):
+            raise AssertionError(f"phase 15a {name}: no node dropped after round 0, so the "
+                                 f"momentum it would revert is zero: {frozen}")
+        finite = all(math.isfinite(x) for h in hist for x in h["losses"] + [h["consensus_err"]])
+        if not finite or metrics["bits_per_round"] != want_bits:
+            raise AssertionError(f"phase 15a {name}: non-finite losses / consensus error, or "
+                                 f"bits/round != payload_bits at the max degree + the dual")
+        out[name] = {"s_per_round": round_s, "peak_gib": peak, "profile": pb}
+        del metrics
+    _release_rows(pinned)  # a failed check ends the script, which frees them
+    return out
+
+
+def gt_full_width(dev, total) -> dict:
+    """15b: gradient tracking with 4 local steps on 2 nodes, ``kq4b`` fused
+    then packed, both lanes through the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+
+    cfg = get_config(QWEN)
+    m, steps, K = 2, 3, 4
+    n_enc = _chunk_plan(cfg, m)
+    shifts = 2  # ring(2) is the 2-node mesh: shifts 0 and 1
+    expect = {"fused": {"fused_encode": 2 * n_enc, "fused_mix": 2 * n_enc * -(-shifts // 8)},
+              "packed": {"quantize": 2 * m * n_enc, "dequantize": 2 * m * (1 + shifts) * n_enc}}
+    runs, out = {}, {}
+    for name, extra in (("fused", ["--fused-gossip"]), ("packed", [])):
+        argv = P15_ARGS + ["--nodes", str(m), "--steps", str(steps), "--consensus", "gt",
+                           "--local-steps", str(K)] + extra
+        log(f"[15b] launch/train.py {' '.join(argv)}")
+        prof_out = {}
+
+        def wrap_step(step, run, state):
+            if step != 1 or name != "fused":  # one profiled round
+                return run()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            return res
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = train.main(argv, wrap_step=wrap_step)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = metrics["history"]
+        log(f"[15b] gt {name}: launches {({k: v for k, v in counts.items() if v})}, expected "
+            f"per round {expect[name]} (2 lanes x the chunk plan's {n_enc} encodes); peak "
+            f"memory {peak:.2f} GiB (reckoned: 7 theta-sized bf16 trees 48.2 GB + theta_prev "
+            f"+ the gradients, ~69 GB = 64 GiB); {secs:.1f} s; s/step "
+            f"{[round(x, 3) for x in metrics['step_seconds']]}; bits/round "
+            f"{metrics['bits_per_round']:.6e}; losses {[h['losses'] for h in hist]}")
+        pb = None
+        if prof_out:
+            pb = _profile_breakdown(prof_out.pop("prof"), prof_out["wall"])
+            log(f"[15b] gt {name} round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, "
+                f"kernels busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%}); "
+                f"kernel ms by section {({k: round(v, 1) for k, v in pb['busy'].items()})}; "
+                f"device span ms by section "
+                f"{({k: round(v, 1) for k, v in pb['spans_ms'].items()})}; read in "
+                f"{pb['read_s']:.1f} s")
+            for ms_, count, key in pb["top"]:
+                log(f"[15b]   {ms_:9.2f} ms x{count:<6d} {key[:90]}")
+        for k, per_round in expect[name].items():
+            if counts[k] != per_round * steps:
+                raise AssertionError(f"phase 15b {name}: {k} launched {counts[k]} times, the "
+                                     f"chunk plan gives {per_round} x {steps}")
+        if not all(math.isfinite(x) for h in hist for x in h["losses"] + [h["consensus_err"]]):
+            raise AssertionError(f"phase 15b {name}: non-finite losses or consensus error")
+        runs[name] = hist
+        out[name] = {"s_per_round": metrics["step_seconds"], "peak_gib": peak, "profile": pb}
+        del metrics
+    f, p = runs["fused"], runs["packed"]
+    if f[0]["losses"] != p[0]["losses"]:
+        raise AssertionError(f"phase 15b: step-0 losses differ: {f[0]['losses']} / "
+                             f"{p[0]['losses']}")
+    rel = max(abs(a - b) / abs(b) for s_ in range(1, steps)
+              for a, b in zip(f[s_]["losses"], p[s_]["losses"]))
+    log(f"[15b] step-0 losses equal (fused == packed); later steps max relative difference "
+        f"{rel:.3e} (bound {LOSS_REL_BOUND})")
+    if rel > LOSS_REL_BOUND:
+        raise AssertionError("phase 15b: fused and packed gradient tracking disagree")
+    return out
+
+
+def resume_full_width(dev, total) -> dict:
+    """15c: run A (4 rounds straight), run B (2 rounds, checkpointed), run C
+    (resumed from B to 4): C's losses and final theta against A's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    cfg = get_config(QWEN)
+    m = 2
+    n_params = T.param_count(cfg)
+    # two state files (theta, theta_hat, s in bf16) and the f32 model file
+    need = 2 * 3 * m * 2 * n_params + 4 * n_params
+    base = max((Path(tempfile.gettempdir()), ROOT), key=lambda d: shutil.disk_usage(d).free)
+    free = shutil.disk_usage(base).free
+    log(f"[15c] disk under {base}: {free / 1e9:.1f} GB free, the checkpoints need "
+        f"{need / 1e9:.1f} GB")
+    if free < need * 1.05:
+        raise AssertionError(f"phase 15c: {free / 1e9:.1f} GB free under {base}, "
+                             f"{need / 1e9:.1f} GB needed")
+    tmp = Path(tempfile.mkdtemp(prefix="p15c_", dir=base))
+    ck = str(tmp / "run")
+    argv = P15_ARGS + ["--nodes", str(m), "--fused-gossip"]
+
+    def run(label, extra):
+        log(f"[15c] {label}: launch/train.py {' '.join(argv + extra)}")
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        kept = {}
+
+        def wrap_step(step, run_, state):  # keeps the final state's theta
+            new, aux = run_()
+            kept["theta"] = new.theta
+            return new, aux
+
+        t0 = time.perf_counter()
+        metrics = train.main(argv + extra, wrap_step=wrap_step)
+        torch.cuda.synchronize()
+        for k, v in _build.launch_counts().items():
+            total[k] = total.get(k, 0) + v
+        theta = [x.cpu() for x in leaves(kept.pop("theta"))]
+        torch.cuda.empty_cache()
+        log(f"[15c] {label}: {time.perf_counter() - t0:.1f} s; losses "
+            f"{[h['losses'] for h in metrics['history']]}; checkpoint io "
+            f"{metrics['checkpoint_io']}")
+        return metrics, theta
+
+    try:
+        a, theta_a = run("A", ["--steps", "4"])
+        b, _ = run("B", ["--steps", "2", "--checkpoint", ck])
+        model_file = tmp / "run_model.npz"
+        log(f"[15c] B wrote {sorted(f.name for f in tmp.iterdir())}; the model file "
+            f"{model_file.stat().st_size / 1e9:.2f} GB")
+        model_file.unlink()
+        c, theta_c = run("C", ["--steps", "4", "--checkpoint", ck, "--resume"])
+        losses_a = [h["losses"] for h in a["history"][2:]]
+        losses_c = [h["losses"] for h in c["history"]]
+        exact = (c["start_step"] == 2 and losses_a == losses_c
+                 and all(torch.equal(x, y) for x, y in zip(theta_a, theta_c)))
+        log(f"[15c] C resumed at step {c['start_step']}: losses of steps 2-3 and the final "
+            f"theta equal to A's bit for bit: {exact}")
+        gap = None
+        if not exact:  # is the card's forward / backward itself repeatable?
+            a2, theta_a2 = run("A again", ["--steps", "4"])
+            dev_ = lambda u, v: max(float((x.float() - y.float()).abs().max())
+                                    for x, y in zip(u, v))
+            gap = dev_(theta_a, theta_a2)
+            off = dev_(theta_a, theta_c)
+            log(f"[15c] A against A again: theta max |diff| {gap:.3e}, losses "
+                f"{[h['losses'] for h in a2['history'][2:]]}; C against A: {off:.3e}")
+            if c["start_step"] != 2 or off > gap:
+                raise AssertionError("phase 15c: the resumed run departs from the "
+                                     "uninterrupted one by more than two uninterrupted runs do")
+        io = {"save_seconds": b["checkpoint_io"]["save_seconds"]
+              + c["checkpoint_io"]["save_seconds"],
+              "save_bytes": b["checkpoint_io"]["save_bytes"] + c["checkpoint_io"]["save_bytes"],
+              "restore_seconds": c["checkpoint_io"]["restore_seconds"], "exact": exact,
+              "gap": gap}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return io
+
+
+def comparisons_on_card(dev, total) -> dict:
+    """15d: the paper's small-model comparisons on the card with the
+    reference's settings (10 nodes, logistic, ``kq4b``), seeds 0 and 1:
+    FT's fault-free rows, the ksweep anchors, Table 5 on rotated_minority."""
+    from repro_torch.launch import comparisons as C
+
+    ft_ref = {(r["schedule"], r["dropout"]): r
+              for r in json.loads((ROOT / "BENCH_FT.json").read_text())["rows"]
+              if r["fault_spec"] == "none" and r["schedule"] in C.FT_SCHEDULES}
+    task_list = C.tasks()
+    task_list = [t + (DRFA_REFERENCE_SAMPLES[t[2]],) if t[1] == "DRFA" else t
+                 for t in task_list] + [("t5", "DRFA", seed) for seed in (0, 1)]
+    t0 = time.perf_counter()
+    results = C.run_tasks(task_list, dev, workers=P15_WORKERS)
+    secs = time.perf_counter() - t0
+    own = [r for r in results if r["name"] == "DRFA" and r["samples"] == "own"]
+    rows = C.summarize([r for r in results if r not in own])
+    for r in results:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    log(f"[15d] {len(results)} runs in {P15_WORKERS} processes on the card: {secs:.1f} s; "
+        f"seconds per run {[round(r['seconds'], 1) for r in results]}")
+    failures = []
+    for sched in C.FT_SCHEDULES:
+        for d in C.FT_DROPOUTS:
+            got, ref = rows[("ft", f"{sched}|{d:g}")], ft_ref[(sched, d)]
+            ok = (got["bits_per_round"] == ref["bits_per_round"]
+                  and got["bits_per_round_expected"] == ref["bits_per_round_expected"]
+                  and got["worst_acc"] >= ref["worst_acc"] - FT_ACC_BAND)
+            log(f"[15d] FT {sched} dropout {d}: worst_acc {got['worst_acc']:.4f} (reference "
+                f"{ref['worst_acc']:.4f}, must be >= -{FT_ACC_BAND}); bits/round "
+                f"{got['bits_per_round']} / expected {got['bits_per_round_expected']} "
+                f"(reference {ref['bits_per_round']} / {ref['bits_per_round_expected']}); "
+                f"realized {got['bits_per_round_realized']:.2f}; {'ok' if ok else 'FAILED'}")
+            if not ok:
+                failures.append(f"FT {sched} {d}")
+    gt, ch8, ch16 = (rows[("ksweep", n)] for n in ("gt@16", "choco@8", "choco@16"))
+    ok = (gt["worst_acc"] > ch8["worst_acc"] and gt["worst_acc"] > ch16["worst_acc"]
+          and gt["bits_realized_total"] <= 1.05 * ch8["bits_realized_total"])
+    log(f"[15d] ksweep: worst_acc gt@16 {gt['worst_acc']:.4f} (must be > choco@8 "
+        f"{ch8['worst_acc']:.4f} and choco@16 {ch16['worst_acc']:.4f}); total bits gt@16 "
+        f"{gt['bits_realized_total']:.0f} (must be <= 1.05 x choco@8's "
+        f"{ch8['bits_realized_total']:.0f}); bits/round gt {gt['bits_per_round']} choco "
+        f"{ch8['bits_per_round']}; {'ok' if ok else 'FAILED'}")
+    if not ok:
+        failures.append("ksweep")
+    order = list(T5_REFERENCE)  # the reference's order, best first
+    accs = {n: rows[("t5", n)]["worst_acc"] for n in order}
+    for n in order:
+        got = rows[("t5", n)]
+        log(f"[15d] T5 {n}: worst_acc {got['worst_acc']:.4f} (reference "
+            f"{T5_REFERENCE[n][0]:.4f}); bits per iteration {got['bits_per_iteration']} "
+            f"(reference {T5_REFERENCE[n][1]})")
+        if got["bits_per_iteration"] != T5_REFERENCE[n][1]:
+            failures.append(f"T5 bits {n}")
+    ordered = all(accs[a] > accs[b] for a, b in zip(order, order[1:]))
+    log(f"[15d] T5 worst-accuracy order {' > '.join(order)}: {'held' if ordered else 'BROKEN'}"
+        f" (DRFA on the reference's client samples); DRFA on the port's own samples: "
+        f"{[round(r['worst_acc'], 4) for r in own]} (seeds 0, 1; not held: see "
+        f"DRFA_REFERENCE_SAMPLES)")
+    if not ordered:
+        failures.append("T5 order")
+    if failures:
+        raise AssertionError(f"phase 15d: {failures}")
+    return {"seconds": secs, "rows": {f"{k[0]}|{k[1]}": v for k, v in rows.items()}}
+
+
+def trainer_breadth(dev) -> dict[str, int]:
+    """Phase 15: 15a, 15b, then 15c with 15d beside it (15d's processes are
+    host-bound and light on the card, 15c is mostly checkpoint I/O); returns
+    the gossip kernels' launch counts."""
+    import concurrent.futures as cf
+
+    total: dict[str, int] = {}
+    for label, fn in (("15a", masked_full_width), ("15b", gt_full_width)):
+        t0 = time.perf_counter()
+        fn(dev, total)
+        log(f"[{label}] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    side: dict[str, int] = {}  # 15d's launches, counted in its own processes
+    with cf.ThreadPoolExecutor(1) as pool:
+        comparisons = pool.submit(comparisons_on_card, dev, side)
+        resume_full_width(dev, total)
+        log(f"[15c] took {time.perf_counter() - t0:.1f} s (15d beside it)")
+        comparisons.result()
+    log(f"[15c+15d] took {time.perf_counter() - t0:.1f} s")
+    for k, v in side.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--turns", metavar="PARENT_ROOT",
                     help="instead of the phases: time the attention and decode rows of the "
@@ -2720,6 +3262,10 @@ def main(argv=None) -> int:
                 for k in SERVING_KERNELS:
                     row = zoo_row(arch, k)
                     launches[row] = launches.get(row, 0) + counts[k]
+    if 15 in phases:
+        breadth = timed(15, lambda: trainer_breadth(dev))
+        for k in GOSSIP_KERNELS:
+            launches[k] = launches.get(k, 0) + breadth.get(k, 0)
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

@@ -5,7 +5,10 @@ from repro_torch.checkpoint.npz import (
     restore,
     restore_jax_params,
     restore_latest,
+    restore_state,
     save,
+    save_state,
+    state_tree,
     step_path,
     unflatten,
 )
@@ -17,7 +20,10 @@ __all__ = [
     "restore",
     "restore_jax_params",
     "restore_latest",
+    "restore_state",
     "save",
+    "save_state",
+    "state_tree",
     "step_path",
     "unflatten",
 ]

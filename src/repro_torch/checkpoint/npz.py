@@ -8,17 +8,33 @@ and read back through int16, so neither side needs ml_dtypes.  Writes are
 atomic and durable: ``<file>.tmp``, fsync, ``os.replace``, fsync of the
 directory.  :func:`restore_latest` walks past unreadable steps to the
 newest one that loads.
+
+A whole trainer state (:func:`save_state` / :func:`restore_state`) is
+written under the reference's ``TrainerState`` names -- ``step``,
+``theta|...``, ``lam``, ``opt|step``, ``opt|mu|...``, ``consensus|theta_hat|...``,
+``consensus|s|...`` (gradient tracking: ``consensus|model|...``,
+``consensus|tracker|...``, ``consensus|y|...``, ``consensus|d_prev|...``),
+``theta_avg|...`` -- so a checkpoint of the reference's state restores into
+the port.  The port's random generators have no counterpart there (the
+reference keeps one JAX key, ``rng``, which the port ignores): their states
+go under the port-only keys ``generator|gossip``, ``generator|dual`` and
+``generator|mask``, as uint8 arrays; a file without them leaves the
+generators as they are.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import _to_tensor, params_from_jax
+from repro_torch.optim import OptState
+from repro_torch.tree import unflatten as tree_unflatten
 
 __all__ = [
     "save",
@@ -27,6 +43,9 @@ __all__ = [
     "unflatten",
     "restore_jax_params",
     "restore_latest",
+    "restore_state",
+    "save_state",
+    "state_tree",
     "latest_step",
     "all_steps",
     "step_path",
@@ -182,3 +201,78 @@ def restore_latest(path: str, tree_like, *, log=print, device="cuda"):
             log(f"checkpoint {fname} is unreadable ({type(e).__name__}: {e}); "
                 f"falling back to the previous complete checkpoint")
     return None, None
+
+
+_GENERATORS = ("gossip", "dual", "mask")
+
+
+def _consensus_tree(cons):
+    if cons == ():
+        return {}
+    if hasattr(cons, "tracker"):  # GTState
+        return {"model": _consensus_tree(cons.model), "tracker": _consensus_tree(cons.tracker),
+                "y": cons.y, "d_prev": cons.d_prev}
+    return {"theta_hat": cons.theta_hat, "s": cons.s}
+
+
+def _generators(state) -> dict:
+    return dict(zip(_GENERATORS, (state.generator, state.dual_generator,
+                                  state.mask_generator)))
+
+
+def state_tree(state) -> dict:
+    """A trainer state as a nested tree under the reference's names; its
+    tensors are the state's own (no copies), the step counters fresh int32
+    scalars.  Holds no generator."""
+    opt = {"step": torch.tensor(state.opt.step, dtype=torch.int32)}
+    for name in ("mu", "nu"):
+        part = getattr(state.opt, name)
+        if part:
+            opt[name] = tree_unflatten(state.theta, list(part))
+    tree = {"step": torch.tensor(state.step, dtype=torch.int32), "theta": state.theta,
+            "lam": state.lam, "opt": opt}
+    cons = _consensus_tree(state.consensus)
+    if cons:
+        tree["consensus"] = cons
+    if state.theta_avg != ():
+        tree["theta_avg"] = state.theta_avg
+    return tree
+
+
+def save_state(path: str, state, step: int | None = None) -> str:
+    """Write a whole trainer state (see the module docstring), generator
+    states included, to ``<path>[_<step>].npz``."""
+    gens = {k: g.get_state() for k, g in _generators(state).items()}
+    return save(path, {**state_tree(state), "generator": gens}, step=step)
+
+
+def restore_state(fname: str, state):
+    """Fill ``state`` (a trainer state of the same structure, e.g. a fresh
+    ``trainer.init``) from ``fname`` in place -- leaf by leaf, each copied
+    into the live tensor, so neither a second copy of the state on the
+    device nor the whole file in host memory is made -- and return it with
+    the file's step counters.  Dtypes are cast to the template's; shapes
+    must match."""
+    with np.load(fname) as data:
+        names = set(data.files)
+        for key, dst in _flatten(state_tree(state)):
+            if key not in names:
+                raise KeyError(f"checkpoint {fname} missing leaf {key!r}")
+            arr = data[key]
+            if arr.dtype.itemsize == 2 and (arr.dtype.kind == "V" or arr.dtype.name == "bfloat16"):
+                arr = arr.view(np.int16)
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(dst.shape)}")
+            with warnings.catch_warnings():  # a read-only buffer, only read by the copy
+                warnings.simplefilter("ignore", UserWarning)
+                src = torch.from_numpy(arr)
+            if dst.dtype == torch.bfloat16 and src.dtype == torch.int16:
+                src = src.view(torch.bfloat16)
+            dst.copy_(src)
+        for name, gen in _generators(state).items():
+            key = f"generator{_SEP}{name}"
+            if key in names:
+                gen.set_state(torch.from_numpy(np.array(data[key], np.uint8)))
+        step, opt_step = int(data["step"]), int(data[f"opt{_SEP}step"])
+    return dataclasses.replace(state, step=step, opt=OptState(opt_step, state.opt.mu,
+                                                              state.opt.nu))

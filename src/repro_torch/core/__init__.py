@@ -1,7 +1,14 @@
-"""AD-GDA core (PyTorch port of ``repro.core``): topologies, compressors,
-CHOCO gossip, the DRO dual, and the composable trainer's main path."""
+"""AD-GDA core (PyTorch port of ``repro.core``): topologies and schedules,
+compressors, CHOCO gossip, the DRO duals, the composable trainer and the
+paper's baselines."""
 from repro_torch.core.adgda import ADGDAConfig, adgda_trainer
-from repro_torch.core.baselines import choco_sgd
+from repro_torch.core.baselines import (
+    DRDSGDConfig,
+    DRFAConfig,
+    choco_sgd,
+    drdsgd_trainer,
+    drfa_trainer,
+)
 from repro_torch.core.compression import (
     BlockTopK,
     Compressor,
@@ -11,11 +18,18 @@ from repro_torch.core.compression import (
     make_compressor,
 )
 from repro_torch.core.gossip import CHOCOState, choco_init, choco_round
-from repro_torch.core.topology import Topology, make_topology
+from repro_torch.core.topology import (
+    Topology,
+    TopologySchedule,
+    make_topology,
+    make_topology_schedule,
+)
 from repro_torch.core.trainer import DecentralizedTrainer, TrainerState
 
 __all__ = [
     "ADGDAConfig",
+    "DRDSGDConfig",
+    "DRFAConfig",
     "BlockTopK",
     "CHOCOState",
     "Compressor",
@@ -24,11 +38,15 @@ __all__ = [
     "RandomQuantization",
     "TopK",
     "Topology",
+    "TopologySchedule",
     "TrainerState",
     "adgda_trainer",
     "choco_init",
     "choco_round",
     "choco_sgd",
+    "drdsgd_trainer",
+    "drfa_trainer",
     "make_compressor",
     "make_topology",
+    "make_topology_schedule",
 ]

@@ -1,12 +1,12 @@
 """Distributionally robust optimization primitives (paper §3, eq. (3)),
-PyTorch port of ``repro.core.dro`` (the DR-DSGD closed form is not yet
-ported).
+PyTorch port of ``repro.core.dro``.
 
     min_theta max_{lambda in simplex}  (1/m) sum_i [ lambda_i f_i(theta) + alpha r(lambda) ]
 
 with r a strongly-concave regularizer: Euclidean projection onto the
 simplex (the ascent step of Algorithm 1), the chi^2 and KL regularizers
-with their gradients, and the dual gradient.
+with their gradients, the dual gradient, and DR-DSGD's closed-form KL
+maximizer.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["project_simplex", "make_regularizer", "dual_gradient", "Regularizer"]
+__all__ = ["project_simplex", "make_regularizer", "dual_gradient", "kl_closed_form_weights",
+           "Regularizer"]
 
 
 def project_simplex(v: torch.Tensor) -> torch.Tensor:
@@ -81,6 +82,14 @@ def make_regularizer(name: str) -> Regularizer:
     if name not in _REGS:
         raise ValueError(f"unknown regularizer {name!r}; choose from {sorted(_REGS)}")
     return _REGS[name]
+
+
+def kl_closed_form_weights(losses: torch.Tensor, prior: torch.Tensor,
+                           alpha: float) -> torch.Tensor:
+    """Exact inner maximizer for the KL regularizer (DR-DSGD):
+    lambda*_i proportional to pi_i exp(f_i / alpha)."""
+    logits = torch.log(prior) + losses / alpha
+    return torch.softmax(logits, dim=-1)
 
 
 def dual_gradient(local_loss, node_index, lam, prior, alpha: float,

@@ -30,19 +30,27 @@ leaf), which is how the tests feed the reference's key stream.  The packed
 and fused paths draw the same shapes at the same points, so from one seed
 their payloads are equal.
 
-Time-varying mixing, masks, faults and the ``ppermute`` backend are not yet
-ported (see ROADMAP.md).
+Time-varying rounds (``mixing=`` a dense [m, m] W(t), ``mask=`` a 0/1
+participation vector) run the reference's memory-full form
+(:func:`_round_leaf_masked`): the averaging step reads W(t) theta_hat
+afresh, dropped nodes skip it, send q = 0 and keep their theta_hat, and
+only alive nodes' s moves.  Such a round bypasses the packed / fused
+dispatch (its wire changes every round); ``fused=True`` with it raises.
+:func:`choco_round_lanes` runs several variables over one round (gradient
+tracking's model and tracker lanes), lane after lane on one generator.
+
+Faults and the ``ppermute`` backend are not yet ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.compression import Compressor, Identity
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, masked_metropolis
 from repro_torch.kernels.choco_fused import dtype_scalar
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import tree_map
@@ -50,9 +58,12 @@ from repro_torch.tree import tree_map
 __all__ = [
     "BLOCK_SCAN_ELEMS",
     "CHOCOState",
+    "LaneRound",
     "choco_init",
     "choco_round",
+    "choco_round_lanes",
     "mix_stacked",
+    "mix_stacked_with",
     "payload_bits",
     "payload_total_bits",
 ]
@@ -97,6 +108,19 @@ def _mix_leaf(x: torch.Tensor, topology: Topology) -> torch.Tensor:
 def mix_stacked(tree, topology: Topology):
     """Gossip-average a stacked tree: leaf[i] <- sum_j w_ij leaf[j]."""
     return tree_map(lambda x: _mix_leaf(x, topology), tree)
+
+
+def _mix_leaf_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_j w_ij x_j with an explicit [m, m] matrix, in f32."""
+    flat = x.reshape(x.shape[0], -1).float()
+    w = w.to(device=x.device, dtype=torch.float32)
+    return (w @ flat).reshape(x.shape).to(x.dtype)
+
+
+def mix_stacked_with(tree, w: torch.Tensor):
+    """Gossip-average a stacked tree with an explicit dense [m, m] matrix
+    (a round's W(t))."""
+    return tree_map(lambda x: _mix_leaf_dense(x, w), tree)
 
 
 def _roll_payload(payload, shift: int):
@@ -155,6 +179,31 @@ def _chunk_views(x: torch.Tensor, plan):
         return [x.narrow(1, c * rows, rows) for c in range(chunks)]
     split = x.reshape(x.shape[:-1] + (chunks, rows))
     return [split.select(-2, c) for c in range(chunks)]
+
+
+def _round_leaf_masked(leaf, hat, s, xi, mixing, gamma, compressor, alive):
+    """One time-varying CHOCO round for a stacked leaf [m, ...] (the
+    memory-full form): W(t) theta_hat is mixed afresh, so s, which only a
+    static W keeps equal to it, is maintained for alive nodes but not read.
+    ``alive`` is the [m] f32 participation mask on the leaf's device."""
+    m = leaf.shape[0]
+    inner_shape, dtype = tuple(leaf.shape[1:]), leaf.dtype
+    ab = alive.reshape((m,) + (1,) * (leaf.ndim - 1))
+    hat32 = hat.float()
+    s_cur = _mix_leaf_dense(hat32, mixing)  # sum_j w_ij(t) hat_j
+    theta_new = leaf + (ab * gamma).to(dtype) * (s_cur - hat32).to(dtype)
+    resid = (theta_new - hat).float() * ab
+    if isinstance(compressor, Identity):
+        q_self = resid
+    else:
+        payload = compressor.encode(resid, xi)
+        # a zero residual codes to exactly zero; the product makes "dropped
+        # nodes send nothing" hold for any compressor
+        q_self = compressor.decode(payload, inner_shape, torch.float32) * ab
+    hat_new = (hat32 + q_self).to(hat.dtype)
+    s_post = s_cur + _mix_leaf_dense(q_self, mixing)  # sum_j w_ij(t) hat_j(t)
+    s_new = (ab * s_post + (1.0 - ab) * s.float()).to(s.dtype)
+    return theta_new, hat_new, s_new
 
 
 def _round_leaf(leaf, hat, s, xi, topology, gamma, compressor, use_packed, use_fused=False):
@@ -222,8 +271,11 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
     """
     if backend != "rolled":
         raise _not_ported(f"gossip backend {backend!r}")
-    if mixing is not None or mask is not None:
-        raise _not_ported("time-varying / masked gossip (mixing=, mask=)")
+    time_varying = mixing is not None or mask is not None
+    if fused and time_varying:
+        raise ValueError("fused gossip runs a static circulant round; a time-varying or "
+                         "masked round (mixing= / mask=) takes the masked path: "
+                         "pass fused=False")
     if fused:
         check_fused(topology, compressor)
     leaves = tree_leaves(theta_half)
@@ -233,6 +285,13 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
         raise ValueError("choco_round updates its trees in place: pass contiguous leaves")
     use_packed = packed and topology.shifts is not None and not isinstance(compressor, Identity)
     m = leaves[0].shape[0]
+    if time_varying:
+        if mixing is None:  # a mask alone: Metropolis on the static graph's survivors
+            mixing = masked_metropolis(topology.adjacency, mask)
+        dev = leaves[0].device
+        mixing = torch.as_tensor(mixing, dtype=torch.float32).to(dev)
+        alive = (torch.ones(m, dtype=torch.float32, device=dev) if mask is None
+                 else torch.as_tensor(mask, dtype=torch.float32).to(dev))
 
     def draw(li, ci, inner_shape):
         shape = compressor.noise_shape(m, inner_shape)
@@ -250,10 +309,46 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
                           dtype=torch.float32)
 
     def round_one(leaf, hat, s, xi):
+        if time_varying:
+            return _round_leaf_masked(leaf, hat, s, xi, mixing, gamma, compressor, alive)
         return _round_leaf(leaf, hat, s, xi, topology, gamma, compressor, use_packed, fused)
 
     _round_leaves(leaves, hat_leaves, s_leaves, draw, round_one, block_scan_elems)
     return theta_half, state
+
+
+class LaneRound(NamedTuple):
+    """One lane of a multi-lane round: the variable to gossip, its CHOCO
+    trackers, and the lane's step size and compressor.  Lane 0 is the
+    model lane."""
+
+    theta: Any  # tree, leaves [m, ...]
+    state: CHOCOState
+    gamma: float
+    compressor: Compressor
+
+
+def choco_round_lanes(lanes, topology: Topology, generator: torch.Generator | None = None, *,
+                      noises=None, packed: bool = True, fused: bool = False,
+                      block_scan_elems: int = BLOCK_SCAN_ELEMS, mixing=None, mask=None,
+                      backend: str = "rolled"):
+    """One multi-lane round on the rolled wire: each :class:`LaneRound`
+    runs :func:`choco_round` over the same topology / W(t) / mask.  The
+    reference folds lane k > 0's key out of the round key; here every lane
+    draws from ``generator``, lane after lane (lane 0 first, so one lane is
+    the single-lane wire), and ``noises[k]`` injects lane k's noise instead.
+    Returns ``(thetas, states)``, one entry per lane (updated in place, as
+    :func:`choco_round`)."""
+    lanes = tuple(LaneRound(*lane) for lane in lanes)
+    if not lanes:
+        raise ValueError("choco_round_lanes needs at least one lane")
+    outs = [choco_round(lane.theta, lane.state, topology, lane.gamma, lane.compressor,
+                        generator=generator,
+                        noise=None if noises is None else noises[k], packed=packed,
+                        fused=fused, block_scan_elems=block_scan_elems, mixing=mixing,
+                        mask=mask, backend=backend)
+            for k, lane in enumerate(lanes)]
+    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
 
 
 def payload_total_bits(compressor: Compressor, theta_template) -> float:
@@ -266,10 +361,26 @@ def payload_total_bits(compressor: Compressor, theta_template) -> float:
     return total
 
 
-def payload_bits(compressor: Compressor, theta_template, topology: Topology, *,
-                 mode: str = "max") -> float:
-    """Bits transmitted per round by the busiest node (degree x payload);
-    ``mode="max"`` only (the participation-aware modes need schedules)."""
-    if mode != "max":
-        raise _not_ported(f"bits mode {mode!r}")
-    return payload_total_bits(compressor, theta_template) * topology.max_degree
+def payload_bits(compressor: Compressor, theta_template, topology, *, mode: str = "max",
+                 step: int | None = None, mask=None, degree: float | None = None) -> float:
+    """Bits sent per round by the busiest node: degree x payload.
+
+    ``topology`` is a :class:`Topology` or a ``TopologySchedule``;
+    ``degree`` overrides its degree.  ``mode``: ``"max"`` (the busiest
+    phase, everyone alive), ``"expected"`` (phase-averaged, times the
+    probability that both ends of a link survive) or ``"realized"`` (round
+    ``step``'s links under ``mask``)."""
+    if mode not in ("max", "expected", "realized"):
+        raise ValueError(f"unknown bits mode {mode!r}; choose max/expected/realized")
+    total = payload_total_bits(compressor, theta_template)
+    if degree is not None:
+        return total * degree
+    if mode == "max":
+        degree = topology.max_degree
+    elif mode == "expected":
+        degree = topology.expected_degree
+    else:
+        if mask is None:
+            raise ValueError("mode='realized' needs the round's participation mask")
+        degree = topology.realized_degree(0 if step is None else step, mask)
+    return total * degree

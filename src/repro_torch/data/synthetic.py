@@ -2,6 +2,11 @@
 of the parts of ``repro.data.synthetic`` its trainer runs.  The same seeds
 give byte-identical arrays.
 
+* ``class_shard_classification`` -- node i holds class i mod C only;
+* ``contrast_shift_classification`` -- a few nodes see a nonlinear contrast
+  change (the CIFAR-contrast analogue);
+* ``instrument_shift_classification`` -- minority nodes see the features
+  through a second "microscope" (the COOS7 analogue);
 * ``rotated_minority_classification`` -- minority nodes see a rotated view
   of the feature space (the quickstart's benchmark);
 * ``node_token_stream`` -- per-node LM batches whose unigram distribution
@@ -13,7 +18,14 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["HeterogeneousDataset", "node_token_stream", "rotated_minority_classification"]
+__all__ = [
+    "HeterogeneousDataset",
+    "class_shard_classification",
+    "contrast_shift_classification",
+    "instrument_shift_classification",
+    "node_token_stream",
+    "rotated_minority_classification",
+]
 
 
 @dataclasses.dataclass
@@ -48,6 +60,111 @@ class HeterogeneousDataset:
             xb = np.take_along_axis(self.x, idx[:, :, None], axis=1)
             yb = np.take_along_axis(self.y, idx, axis=1)
             yield xb, yb
+
+
+def class_shard_classification(
+    num_nodes: int = 10,
+    num_classes: int | None = None,
+    dim: int = 32,
+    n_per_node: int = 512,
+    n_val: int = 512,
+    sep: float = 1.8,
+    seed: int = 0,
+) -> HeterogeneousDataset:
+    """Node i stores samples of class (i mod C) only (paper §5.1 class split)."""
+    num_classes = num_classes or num_nodes
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(num_classes, dim)) * sep
+    xs, ys = [], []
+    for i in range(num_nodes):
+        c = i % num_classes
+        x = means[c] + rng.normal(size=(n_per_node, dim))
+        xs.append(x.astype(np.float32))
+        ys.append(np.full((n_per_node,), c, np.int32))
+    val_x, val_y, names = [], [], []
+    for c in range(num_classes):
+        x = means[c] + rng.normal(size=(n_val, dim))
+        val_x.append(x.astype(np.float32))
+        val_y.append(np.full((n_val,), c, np.int32))
+        names.append(f"class_{c}")
+    return HeterogeneousDataset(np.stack(xs), np.stack(ys), val_x, val_y, names)
+
+
+def _contrast(x: np.ndarray, c: float) -> np.ndarray:
+    """Paper eq. (11) analog on standardized features: nonlinear contrast."""
+    z = c * x
+    return np.sign(z) * np.abs(z) ** 1.1
+
+
+def contrast_shift_classification(
+    num_nodes: int = 20,
+    num_classes: int = 10,
+    dim: int = 32,
+    n_per_node: int = 512,
+    n_val: int = 512,
+    low_nodes: int = 2,
+    high_nodes: int = 2,
+    sep: float = 1.5,
+    seed: int = 0,
+) -> HeterogeneousDataset:
+    """CIFAR-contrast analog: a few nodes see c=0.5 / c=1.5 transformed data."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(num_classes, dim)) * sep
+    contrasts = [0.5] * low_nodes + [1.5] * high_nodes + [1.0] * (num_nodes - low_nodes - high_nodes)
+    xs, ys = [], []
+    for i in range(num_nodes):
+        labels = rng.integers(0, num_classes, n_per_node)
+        x = means[labels] + rng.normal(size=(n_per_node, dim))
+        xs.append(_contrast(x, contrasts[i]).astype(np.float32))
+        ys.append(labels.astype(np.int32))
+    val_x, val_y, names = [], [], []
+    for cname, c in (("low_contrast", 0.5), ("high_contrast", 1.5), ("original", 1.0)):
+        labels = rng.integers(0, num_classes, n_val)
+        x = means[labels] + rng.normal(size=(n_val, dim))
+        val_x.append(_contrast(x, c).astype(np.float32))
+        val_y.append(labels.astype(np.int32))
+        names.append(cname)
+    return HeterogeneousDataset(np.stack(xs), np.stack(ys), val_x, val_y, names)
+
+
+def instrument_shift_classification(
+    num_nodes: int = 10,
+    num_classes: int = 7,
+    dim: int = 32,
+    n_per_node: int = 512,
+    n_val: int = 512,
+    minority_nodes: int = 2,
+    sep: float = 1.5,
+    seed: int = 0,
+) -> HeterogeneousDataset:
+    """COOS7 analog: minority nodes sample via a different 'microscope'
+    (a fixed random linear distortion + offset of the features)."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(num_classes, dim)) * sep
+    # instrument 2: fixed rotation-ish distortion + bias
+    a = rng.normal(size=(dim, dim)) * (0.4 / np.sqrt(dim))
+    distort = np.eye(dim) + a
+    offset = rng.normal(size=(dim,)) * 0.8
+
+    def instrument2(x):
+        return x @ distort.T + offset
+
+    xs, ys = [], []
+    for i in range(num_nodes):
+        labels = rng.integers(0, num_classes, n_per_node)
+        x = means[labels] + rng.normal(size=(n_per_node, dim))
+        if i < minority_nodes:
+            x = instrument2(x)
+        xs.append(x.astype(np.float32))
+        ys.append(labels.astype(np.int32))
+    val_x, val_y, names = [], [], []
+    for name, fn in (("microscope_1", lambda x: x), ("microscope_2", instrument2)):
+        labels = rng.integers(0, num_classes, n_val)
+        x = means[labels] + rng.normal(size=(n_val, dim))
+        val_x.append(fn(x).astype(np.float32))
+        val_y.append(labels.astype(np.int32))
+        names.append(name)
+    return HeterogeneousDataset(np.stack(xs), np.stack(ys), val_x, val_y, names)
 
 
 def rotated_minority_classification(

@@ -37,6 +37,7 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
 from repro_torch.serving import Request, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ZOO = ("qwen3-4b", "granite-20b", "command-r-35b", "recurrentgemma-2b", "deepseek-moe-16b",
        "mamba2-1.3b", "internvl2-2b", "whisper-small")

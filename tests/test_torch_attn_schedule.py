@@ -34,6 +34,7 @@ from repro_torch.kernels import block_sparse as kbs
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels.flash_attention import MASK_BLOCKS, MASK_ELEM, MASK_NONE, TILE_K
 from repro_torch.kernels.ref import NEG_INF, block_sparse_mask, p_rounding_bound
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 P = kbs.BlockSparsePattern
 LOG2E = 1.4426950408889634

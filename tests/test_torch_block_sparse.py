@@ -37,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serving import Request, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 J_PREFILL = jax.jit(JT.prefill, static_argnums=(2, 3))

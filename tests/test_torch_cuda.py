@@ -650,6 +650,60 @@ def test_reduced_trainer_runs_through_the_gossip_kernels(cuda, fused):
     assert all(counts[n] > 0 for n in names)
 
 
+def test_zero_residual_quantizes_and_decodes_to_exact_zeros(cuda):
+    """A dropped node's residual is zero: no level, no sign, and exactly
+    0.0 back (the kernel divides by max(norm, 1e-30))."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    m, shape = 3, (2, 5000)
+    x = torch.randn((m,) + shape, generator=g, device=cuda)
+    x[1] = 0.0
+    comp = KernelQuantization(4)
+    xi = torch.rand(comp.noise_shape(m, shape), generator=g, device=cuda)
+    payload = comp.encode(x, xi)
+    assert float(payload["norm"][1]) == 0.0
+    assert not bool(payload["levels"][1].any()) and not bool(payload["signs"][1].any())
+    out = comp.decode(payload, shape, torch.float32)
+    assert torch.equal(out[1].view(torch.int32), torch.zeros_like(out[1]).view(torch.int32))
+    cpu = comp.decode(comp.encode(x.cpu(), xi.cpu()), shape, torch.float32)
+    assert torch.equal(out.cpu(), cpu)
+
+
+def test_masked_kq4b_round_matches_its_cpu_twin(cuda):
+    """One masked round (round-robin W(t), node 1 dropped), bf16 state on
+    the card through the quantize / dequantize kernels, against the same
+    round on the CPU's plain versions: theta and theta_hat equal, s within
+    one bf16 step (the dense W(t) products sum in another order); the
+    dropped node's rows untouched; one encode and one decode per node."""
+    from repro_torch.core.topology import make_topology_schedule
+
+    g = torch.Generator().manual_seed(2)
+    m, shape = 4, (3, 5000)
+    theta, hat, s = (torch.randn((m,) + shape, generator=g).to(torch.bfloat16)
+                     for _ in range(3))
+    comp = KernelQuantization(4)
+    xi = torch.rand(comp.noise_shape(m, shape), generator=g)
+    sched = make_topology_schedule("roundrobin:ring,torus", m, dropout=0.3)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    outs = []
+    for dev in ("cpu", cuda):
+        before = (kq.quantize_launches.count, kq.dequantize_launches.count)
+        trees = [{"w": x.clone().to(dev)} for x in (theta, hat, s)]
+        state = gossip.CHOCOState(theta_hat=trees[1], s=trees[2])
+        t_new, st = gossip.choco_round(trees[0], state, sched.topology_at(1), 0.2, comp,
+                                       noise=lambda li, ci, shape_: xi, mixing=sched.mixing_at(1, mask),
+                                       mask=mask.to(dev))
+        launched = (kq.quantize_launches.count - before[0],
+                    kq.dequantize_launches.count - before[1])
+        outs.append([t_new["w"].cpu(), st.theta_hat["w"].cpu(), st.s["w"].cpu()])
+    assert launched == (m, m)
+    (tc, hc, sc), (tg, hg, sg) = outs
+    assert torch.equal(tc, tg) and torch.equal(hc, hg)
+    a, b = sc.float(), sg.float()
+    assert bool(((a - b).abs() <= torch.maximum(a.abs(), b.abs()) * 2.0**-7 + 1e-6).all())
+    for before_, after in ((theta, tg), (hat, hg), (s, sg)):
+        assert torch.equal(after[1], before_[1])
+
+
 # ------------------------------------------------------------------ block top-k
 def _topk_rows(case, g, device):
     """(x [rows, block] f32, k) for one block top-k case."""
@@ -673,6 +727,22 @@ def _topk_rows(case, g, device):
     if case == "ragged_block":
         return torch.randn(9, 300, generator=g, device=device), 75
     raise ValueError(case)
+
+
+def test_block_topk_kernel_on_all_zero_rows(cuda):
+    """A dropped node's zero residual: every block of zeros keeps zeros,
+    bit for bit against ``ref.block_topk_ref`` (signed zeros included),
+    alone and beside live rows."""
+    from repro_torch.kernels.ref import block_topk_ref
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(4, 6 * 1024, generator=g, device=cuda)
+    x[2] = 0.0
+    x[3, :2048] = -0.0
+    out = ops.block_topk(x, 0.25, 1024)
+    want = block_topk_ref(x.reshape(-1, 1024).cpu(), 256).reshape(x.shape)
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+    assert not bool(out[2].any())
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "zero_row", "negative", "k1", "k_block",

@@ -27,6 +27,7 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode as kd
 from repro_torch.kernels.ref import quantize_kv_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=1e-4, rtol=1e-2)

@@ -40,6 +40,7 @@ from repro_torch.serving import fleet as tfleet
 from repro_torch.serving import loadgen as tloadgen
 from repro_torch.serving import metrics as tmetrics
 from repro_torch.serving import Request, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TICK_FIELDS = ("requests", "completed", "rejected", "shed", "p50_ttft_ticks", "p95_ttft_ticks",

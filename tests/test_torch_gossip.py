@@ -42,6 +42,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as TT
 from repro_torch.optim import OptState, make_schedule, sgd
 from repro_torch.tree import leaves, unflatten
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LANES = 128
 NORM_FLIPS = 1e-3

@@ -30,6 +30,7 @@ from repro_torch.kernels import choco_fused as kc
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as kq
 from repro_torch.kernels import ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LANES = 128
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import ops
 from repro_torch.kernels import sliding_window as ksw
 from repro_torch.kernels.ref import quantize_kv_ref as quantize_kv_torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 

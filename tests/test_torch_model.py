@@ -19,6 +19,7 @@ from repro.configs import get_config as jax_config
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import transformer as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KNOB_OFF = dict(atol=1e-4, rtol=1e-4)
 FLASH = dict(atol=2e-4, rtol=1e-3)

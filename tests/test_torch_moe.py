@@ -25,6 +25,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "deepseek-moe-16b"
 

@@ -27,6 +27,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as TT
 from repro_torch.serving import ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"

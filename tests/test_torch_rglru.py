@@ -18,6 +18,7 @@ from repro.configs import get_config as jax_config
 from repro.models import rglru as JR
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import rglru as TR
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

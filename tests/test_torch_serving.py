@@ -20,6 +20,7 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as TT
 from repro_torch.serving import SEEN_SHAPES, Request, ServeEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _cfgs(**kw):

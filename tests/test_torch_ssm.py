@@ -19,6 +19,7 @@ from repro.configs import get_config as jax_config
 from repro.models import ssm as JS
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import ssm as TS
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "mamba2-1.3b"
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -65,6 +65,7 @@ from repro_torch.kernels.ops import KernelBlockTopK
 from repro_torch.launch import quickstart
 from repro_torch.launch import steps as tsteps
 from repro_torch.tree import leaves, unflatten
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 M = 4
 REL = 1e-5

@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import topk as ktopk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _bits(x) -> np.ndarray:

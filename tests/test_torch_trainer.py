@@ -27,6 +27,7 @@ from repro_torch.core import gossip
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.tree import leaves, unflatten
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 M, STEPS = 4, 3
 REL = 1e-5
@@ -66,6 +67,9 @@ def test_trainer_matches_reference(spec, fused, robust):
                                   for x in jax.tree_util.tree_leaves(jparams)])
     rng = jax.random.PRNGKey(1)
     jstate = jtr.init(jparams, rng)
+    # the initial lambda is weakly typed and later rounds' is not: a strong f32
+    # lambda (the same values) compiles the jitted step once, not twice
+    jstate = jstate._replace(lam=jnp.asarray(jstate.lam, jnp.float32))
     tstate = ttr.init(tparams, seed=0)
     assert ttr.gamma == pytest.approx(jtr.gamma, rel=1e-12)
     stream = node_token_stream(M, 2, 8, jcfg.vocab_size, seed=0)
@@ -105,13 +109,47 @@ def test_train_cli_runs_on_the_cpu_and_writes_the_reference_metrics(tmp_path, mo
     assert set(got) == set(json.loads(ref.read_text()))
 
 
+@pytest.fixture(scope="module")
+def reference_metric_keys(tmp_path_factory):
+    """The metrics file's keys from the reference CLI (one run: its keys do
+    not depend on the flags)."""
+    ref = tmp_path_factory.mktemp("jax") / "jax.json"
+    argv = sys.argv
+    sys.argv = ["train", "--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--nodes", "3",
+                "--batch-per-node", "2", "--seq", "16", "--compressor", "none",
+                "--metrics-out", str(ref)]
+    try:
+        jtrain.main()
+    finally:
+        sys.argv = argv
+    return set(json.loads(ref.read_text()))
+
+
 @pytest.mark.parametrize("flag", [
     ["--topology-schedule", "roundrobin:ring,torus"], ["--dropout", "0.1"],
-    ["--fault-spec", "drop:0.1"], ["--consensus", "gt"], ["--gossip-backend", "ppermute"],
-    ["--local-steps", "2"], ["--checkpoint", "ckpt/x"],
-])
-def test_train_cli_flags_outside_the_port_raise(flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    ["--consensus", "gt"], ["--local-steps", "2"], ["--checkpoint", "ckpt/x"],
+], ids=["topology-schedule", "dropout", "consensus-gt", "local-steps", "checkpoint"])
+def test_train_cli_flags_run_on_the_cpu(flag, tmp_path, reference_metric_keys):
+    """The trainer-breadth flags run 2 rounds on the CPU and write the
+    metrics file with the reference CLI's keys."""
+    flag = [str(tmp_path / f) if f.startswith("ckpt/") else f for f in flag]
+    out = tmp_path / "torch.json"
+    res = ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--nodes", "3", "--batch-per-node",
+                       "2", "--seq", "16", *flag, "--steps", "2", "--compressor", "kq4b",
+                       "--device", "cpu", "--metrics-out", str(out)])
+    got = json.loads(out.read_text())
+    assert all(np.isfinite(got["losses"])) and len(res["history"]) == 2
+    assert set(got) == reference_metric_keys
+
+
+@pytest.mark.parametrize("flag,exc,match", [
+    (["--fault-spec", "drop:0.1"], NotImplementedError, "not yet ported.*ROADMAP"),
+    (["--gossip-backend", "ppermute"], NotImplementedError, "not yet ported.*ROADMAP"),
+    (["--fused-gossip", "--compressor", "kq4b", "--dropout", "0.1"], ValueError,
+     "masked path"),
+], ids=["fault-spec", "ppermute", "fused-dropout"])
+def test_train_cli_flags_outside_the_port_raise(flag, exc, match):
+    with pytest.raises(exc, match=match):
         ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                      *flag])
 
