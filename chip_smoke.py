@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 2,13      # kernels, then the model zoo at full width
     python3 chip_smoke.py --phases 2,14      # kernels, then MoE / SSM / VLM / enc-dec configs
     python3 chip_smoke.py --phases 1,2,15    # kernels, then the trainer's breadth (15a-15d)
+    python3 chip_smoke.py --phases 1,2,16    # kernels, then the faulted wire (16a, 16b)
     python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
                                              # and this one in turns (no phases)
 
@@ -21,8 +22,9 @@ Phases (any failure exits non-zero):
      shapes: max error, tolerance, kernel / plain / library ms, bound, and
      for the attention rows achieved TFLOP/s and share of the bound
      (attention, block-sparse attention included, at the serving shapes;
-     quantize, dequantize, fused encode, fused mix and block top-k at
-     qwen3-1.7b's largest gossip chunk, outputs exactly equal);
+     quantize, dequantize, fused encode (and its digest variant at the
+     faulted round's 3 nodes), fused mix and block top-k at qwen3-1.7b's
+     largest gossip chunk, outputs exactly equal);
   3. full-width qwen3-1.7b (random seeded weights): prefill + 16 decode steps
      with ``attn_kernel="flash"`` and ``"block_sparse"`` against
      ``attn_kernel=None``;
@@ -89,8 +91,23 @@ Phases (any failure exits non-zero):
      ``BENCH_FT.json``, worst accuracy within 0.05 below), the ksweep anchors
      (gt@16 above choco@8 and choco@16, its bits within 1.05 x choco@8's),
      Table 5 on rotated_minority (bits per iteration exact, the reference's
-     worst-accuracy order held, DRFA on the reference's client samples).
-Phases 4-6, 9, 11, 12, 13, 14 and 15 are the main paths: launch counters are
+     worst-accuracy order held, DRFA on the reference's client samples);
+ 16. the fault-tolerant wire at full width: (a) ``launch/train.py`` on 3
+     nodes, static ring, ``kq4b``, ``--fault-spec drop:0.2,corrupt:0.1,stale:0``,
+     P16_ROUNDS rounds packed, then the same rounds ``--fused-gossip`` (the
+     fused encode's digest variant) on the same seeds: the drawn events
+     cover a drop, a corrupt, a verified and a failed resync; after every
+     round every synced mirror equals its sender's theta_hat bit for bit
+     and every unsynced one differs in a chunk digest; the realized bits
+     equal the host's formula from the round's events; launches = the
+     formula; fused = packed bit for bit (theta, theta_hat, s, both
+     mirrors, the fault state, the meter); (b) FT's six faulted rows (run
+     in 15d's pool, or alone without phase 15) held by the reference's FT
+     rules: consensus error <= 2x the fault-free twin's, detections and
+     resyncs > 0, drop rows' worst accuracy >= the twin's - 0.05, worst
+     accuracy >= the reference's - 0.05, bits exact, detections and
+     resyncs within 20% of the reference's.
+Phases 4-6, 9, 11, 12, 13, 14, 15 and 16 are the main paths: launch counters are
 zeroed just before each run and read just after, and every kernel the run
 goes through must have launched (in phases 11, 13 and 14, once per attention
 layer and model forward).  Phase 2 also checks and times the attention and
@@ -132,7 +149,8 @@ L2_BYTES = 50 * 2**20
 # kernels by main path: the serving phases (4-6) and the trainer (9)
 SERVING_KERNELS = ("flash_attention", "sliding_window_attention", "decode_attention",
                    "decode_attention_int8", "block_sparse_attention")
-GOSSIP_KERNELS = ("quantize", "dequantize", "fused_encode", "fused_mix", "block_topk")
+GOSSIP_KERNELS = ("quantize", "dequantize", "fused_encode", "fused_encode_digest", "fused_mix",
+                  "block_topk")
 
 
 def log(msg: str) -> None:
@@ -1559,6 +1577,50 @@ def check_gossip_kernels(dev) -> dict:
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         device_ms=device_ms(efn, sets, 10), shape=f"[{m},{R},{L}] bf16, 4 bits")
     del sets, args
+
+    # -- the digest variant at the faulted round's shape: 3 nodes (phase 16a)
+    m3 = 3
+
+    def enc3():
+        tn, hat = randn(m3, R, L, dtype=torch.bfloat16), randn(m3, R, L, dtype=torch.bfloat16)
+        norms = torch.linalg.vector_norm((tn - hat).float().reshape(m3, -1), dim=1)
+        scales = torch.stack([encode_scale(norms, 4),
+                              norms / f32_full(norms, 16 * tau_for(n, 4))], 1)
+        return tn, hat, rand(m3, R, L), scales
+
+    args3 = enc3()
+    out = kc.fused_encode(*args3, 4, with_digest=True)
+    ref = kc.fused_encode_plain(*args3, 4, with_digest=True)
+    for part, a, b in zip(("levels", "signs", "hat_new", "digest"), out, ref):
+        _exact(f"fused_encode_digest [{m3},{R},{L}] bf16 {part}", a, b, failures)
+    from repro_torch.core.faults import digest as wire_digest
+
+    _exact(f"fused_encode_digest [{m3},{R},{L}] digest == core.faults.digest(hat_new)",
+           out[3], wire_digest(out[2]), failures)
+    # 8 bits and an odd number of 8-row groups per node: a block of the
+    # digest's reduction straddles two nodes
+    for dt in (torch.bfloat16, torch.float32):
+        tn, hat = randn(m3, 40, L, dtype=dt), randn(m3, 40, L, dtype=dt)
+        norms = torch.linalg.vector_norm((tn - hat).float().reshape(m3, -1), dim=1)
+        sc = torch.stack([encode_scale(norms, 8),
+                          norms / f32_full(norms, 256 * tau_for(40 * L, 8))], 1)
+        small = (tn, hat, rand(m3, 40, L), sc)
+        for part, a, b in zip(("levels", "signs", "hat_new", "digest"),
+                              kc.fused_encode(*small, 8, with_digest=True),
+                              kc.fused_encode_plain(*small, 8, with_digest=True)):
+            _exact(f"fused_encode_digest [{m3},40,{L}] {dt} 8 bits {part}", a, b, failures)
+    sets = copies_past_l2(enc3, m3 * n * 8)
+    dfn = lambda a, b_, c, d: kc.fused_encode(a, b_, c, d, 4, with_digest=True)
+    ms = time_ms(dfn, sets, 10)
+    plain_ms = time_ms(lambda a, b_, c, d: kc.fused_encode_plain(a, b_, c, d, 4, True), sets, 3)
+    # the encode's traffic, plus one integer add per element for the digest
+    b_ms, b_by = bound(9 * m3 * n, m3 * n * (2 + 2 + 4 + 2 + 5 / 8) + 4 * m3, "float32")
+    records["fused_encode_digest"] = dict(
+        name="fused_encode_digest", route="cuda", source="src/repro_torch/csrc/choco_fused.cu",
+        replaces="src/repro/kernels/choco_fused.py:165", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_ms=device_ms(dfn, sets, 10), shape=f"[{m3},{R},{L}] bf16, 4 bits, +digest")
+    del sets, args3, out, ref
 
     # -- fused mix: K = 3 ring shifts (the round's launch reads the unrolled
     # payload with node offsets), K = 8 through the rolled signature
@@ -3146,10 +3208,11 @@ def comparisons_on_card(dev, total) -> dict:
     return {"seconds": secs, "rows": {f"{k[0]}|{k[1]}": v for k, v in rows.items()}}
 
 
-def trainer_breadth(dev) -> dict[str, int]:
+def trainer_breadth(dev) -> tuple[dict[str, int], dict]:
     """Phase 15: 15a, 15b, then 15c with 15d beside it (15d's processes are
     host-bound and light on the card, 15c is mostly checkpoint I/O); returns
-    the gossip kernels' launch counts."""
+    the gossip kernels' launch counts and 15d's rows (FT's faulted rows among
+    them, which phase 16b holds)."""
     import concurrent.futures as cf
 
     total: dict[str, int] = {}
@@ -3163,17 +3226,291 @@ def trainer_breadth(dev) -> dict[str, int]:
         comparisons = pool.submit(comparisons_on_card, dev, side)
         resume_full_width(dev, total)
         log(f"[15c] took {time.perf_counter() - t0:.1f} s (15d beside it)")
-        comparisons.result()
+        rows = comparisons.result()["rows"]
     log(f"[15c+15d] took {time.perf_counter() - t0:.1f} s")
     for k, v in side.items():
         total[k] = total.get(k, 0) + v
+    return total, rows
+
+
+# ----------------------------------------------------------------- phase 16
+P16_SPEC = "drop:0.2,corrupt:0.1,stale:0"
+# the events depend on the fault generator alone; under this spec on a
+# 3-node ring, 95.9% of 2000 generator seeds draw a drop, a corrupt, a
+# verified and a failed resync within 8 rounds (70.6% within 4), a host-side
+# count made before choosing the rounds (see PERF.md)
+P16_ROUNDS = 8
+
+
+def _chunk_digests(trees):
+    """Per (tree, leaf, chunk) the [m] int32 digests (``core.faults.digest``)
+    of the gossip's chunks, stacked: [chunks, m] on the device."""
+    import torch
+
+    from repro_torch.core.faults import digest
+    from repro_torch.core.gossip import _chunk_views, _scan_plan
+    from repro_torch.tree import leaves
+
+    out = []
+    for tree in trees:
+        for leaf in leaves(tree):
+            plan = _scan_plan(tuple(leaf.shape), leaf[0].numel(), 1 << 24)
+            out += [digest(c) for c in ([leaf] if plan is None else _chunk_views(leaf, plan))]
+    return torch.stack(out)
+
+
+def _wire_bits(ev, want, union, msg_bits) -> "np.ndarray":
+    """The delivered-bits meter from a round's events, on the host, in f32 as
+    the reference's formula: per sender and op, 0 for a drop, 2x for a dup,
+    else 1x of (payload + digest lane + the dense hat when its receiver
+    asked for a resync)."""
+    import numpy as np
+
+    from repro_torch.core.faults import receiver_maps
+
+    payload, dig, dense = msg_bits
+    mult = np.where(ev.drop.numpy(), 0.0, np.where(ev.dup.numpy(), 2.0, 1.0)).astype(np.float32)
+    bits = np.zeros(union.num_nodes, np.float32)
+    for k, rcv in enumerate(receiver_maps(union)):
+        for j, i in enumerate(rcv):
+            if i >= 0:
+                msg = np.float32(payload + dig) + np.float32(float(want[k, i])) * np.float32(dense)
+                bits[j] = np.float32(bits[j] + mult[k, i] * msg)
+    return bits
+
+
+def faulted_full_width(dev, total) -> dict:
+    """16a: the faulted wire on qwen3-1.7b at full width, 3 nodes on a ring,
+    ``kq4b``, packed then fused on the same seeds."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import faults as F
+    from repro_torch.core.exchange import wire_msg_bits
+    from repro_torch.core.topology import compile_permute_plan, make_topology
+    from repro_torch.core.wire import compile_union_wire
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelQuantization
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+
+    cfg = get_config(QWEN)
+    m, spec = 3, F.parse_fault_spec(P16_SPEC)
+    n_enc = _chunk_plan(cfg, m)
+    union = compile_union_wire((compile_permute_plan(make_topology("ring", m)),))
+    dual_bits = np.float32(32.0 * m * 2)  # the lambda gossip's constant: m floats, degree 2
+    zero = {k: 0 for k in GOSSIP_KERNELS}
+    expect = {"packed": {**zero, "quantize": m * n_enc, "dequantize": m * n_enc},
+              "fused": {**zero, "fused_encode_digest": n_enc, "dequantize": m * n_enc}}
+    argv = P15_ARGS + ["--nodes", str(m), "--steps", str(P16_ROUNDS), "--topology", "ring",
+                       "--fault-spec", P16_SPEC]
+
+    def trees(state):
+        cons = state.consensus
+        return [state.theta, cons.theta_hat, cons.s, *cons.cache]
+
+    def two_leaves(state):  # the embeddings and layer 0's wq of every tree
+        return [t for tree in trees(state)
+                for t in (tree["embed"]["table"], tree["blocks"][0]["mixer"]["wq"][:, 0])]
+
+    runs, out = {}, {}
+    for name, extra in (("packed", []), ("fused", ["--fused-gossip"])):
+        rec, prof_out = [], {}
+        cover = {"drop": False, "corrupt": False, "resync_ok": False, "resync_failed": False}
+
+        def wrap_step(step, run, state):
+            gen = torch.Generator()  # the round's draw, ahead, on a copy of the fault generator
+            gen.set_state(state.fault_generator.get_state())
+            ev = F.sample_events(spec, torch.rand((union.n_ops, m), generator=gen))
+            before = F.FaultState(*(x.cpu() for x in state.consensus.fault))
+            want = ((before.stale.T > spec.stale) & (before.wait.T <= 0)).numpy()
+            msg_bits = wire_msg_bits(KernelQuantization(4), state.theta)
+            counts0 = _build.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == 1 and name == "fused":  # one profiled round
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    new, aux = run()
+                    torch.cuda.synchronize()
+                    prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            else:
+                new, aux = run()
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {k: v - counts0.get(k, 0) for k, v in _build.launch_counts().items()}
+            got = {k: counts.get(k, 0) for k in GOSSIP_KERNELS}
+            if got != expect[name]:
+                raise AssertionError(f"phase 16a {name} round {step}: launches {got} != "
+                                     f"{expect[name]}")
+            fs = F.FaultState(*(x.cpu() for x in new.consensus.fault))
+            # coverage, from the events drawn and what the state machine did
+            cover["drop"] |= bool(ev.drop.any())
+            cover["corrupt"] |= bool(ev.corrupt.any())
+            cover["resync_ok"] |= bool((fs.resyncs > before.resyncs).any())
+            cover["resync_failed"] |= bool((torch.from_numpy(want).T & (fs.synced == 0)).any())
+            # the meter against the host's formula, and the trainer's realized bits
+            want_bits = _wire_bits(ev, want, union, msg_bits)
+            if not np.array_equal(fs.bits.numpy(), want_bits):
+                raise AssertionError(f"phase 16a {name} round {step}: meter {fs.bits.tolist()} "
+                                     f"!= formula {want_bits.tolist()}")
+            if aux["bits_realized"] != float(np.float32(want_bits.max()) + dual_bits):
+                raise AssertionError(f"phase 16a {name} round {step}: bits_realized "
+                                     f"{aux['bits_realized']} != {want_bits.max()} + {dual_bits}")
+            # the mirror invariant, on the device
+            cons = new.consensus
+            hats = leaves(cons.theta_hat)
+            dig_hat = _chunk_digests([cons.theta_hat])
+            for k, snd in enumerate(union.senders):
+                dig_mirror = _chunk_digests([cons.cache[k]])
+                for i, j in enumerate(snd):
+                    if fs.synced[i, k] > 0:
+                        same = all(torch.equal(_bits(mir[i]), _bits(hat[j]))
+                                   for mir, hat in zip(leaves(cons.cache[k]), hats))
+                        if not same:
+                            raise AssertionError(f"phase 16a {name} round {step}: op {k} node "
+                                                 f"{i} synced, mirror != sender {j}'s hat")
+                    elif torch.equal(dig_mirror[:, i], dig_hat[:, j]):
+                        raise AssertionError(f"phase 16a {name} round {step}: op {k} node {i} "
+                                             f"unsynced, yet every chunk digest equals {j}'s")
+            rec.append({"digests": _chunk_digests(trees(new)).cpu(),
+                        "fault": [x.clone() for x in fs], "seconds": secs,
+                        "events": {f: getattr(ev, f).int().tolist() for f in ("drop", "corrupt")},
+                        "detected": fs.detected.tolist(), "resyncs": fs.resyncs.tolist(),
+                        "bits": fs.bits.tolist(), "launches": got})
+            if step == P16_ROUNDS - 1:  # full copies of two leaves of every tree
+                if name == "packed":
+                    runs["kept"] = [x.cpu() for x in two_leaves(new)]
+                else:
+                    rec[-1]["two_leaves_equal"] = all(
+                        torch.equal(_bits(x), _bits(y.to(x.device)))
+                        for x, y in zip(two_leaves(new), runs["kept"]))
+            return new, aux
+
+        log(f"[16a] launch/train.py {' '.join(argv + extra)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = train.main(argv + extra, wrap_step=wrap_step)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, v in _build.launch_counts().items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = metrics["history"]
+        log(f"[16a] {name}: {secs:.1f} s; s per round {[round(r['seconds'], 3) for r in rec]}; "
+            f"peak memory {peak:.2f} GiB; launches per round {rec[0]['launches']} (= "
+            f"{expect[name]}: {n_enc} chunks, {m} nodes)")
+        log(f"[16a] {name}: events per round (drop, corrupt; [op][receiver]) "
+            f"{[(r['events']['drop'], r['events']['corrupt']) for r in rec]}; detected "
+            f"{[r['detected'] for r in rec]}; resyncs {[r['resyncs'] for r in rec]}; coverage "
+            f"{cover}")
+        log(f"[16a] {name}: meter per node and round (= the host's formula) "
+            f"{[r['bits'] for r in rec]}; bits_realized {[h['bits_realized'] for h in hist]}; "
+            f"losses {[h['losses'] for h in hist]}; consensus error "
+            f"{[h['consensus_err'] for h in hist]}")
+        pb = None
+        if prof_out:
+            pb = _profile_breakdown(prof_out.pop("prof"), prof_out["wall"])
+            log(f"[16a] fused round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, kernels "
+                f"busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%}); kernel ms by "
+                f"section {({k: round(v, 1) for k, v in pb['busy'].items()})}; device span ms "
+                f"by section {({k: round(v, 1) for k, v in pb['spans_ms'].items()})}; read in "
+                f"{pb['read_s']:.1f} s")
+            for ms_, count, key in pb["top"]:
+                log(f"[16a]   {ms_:9.2f} ms x{count:<6d} {key[:90]}")
+        if not all(cover.values()):
+            raise AssertionError(f"phase 16a {name}: the seed's events did not cover every "
+                                 f"case: {cover}")
+        if not all(math.isfinite(x) for h in hist for x in h["losses"] + [h["consensus_err"]]):
+            raise AssertionError(f"phase 16a {name}: non-finite losses or consensus error")
+        runs[name] = rec
+        out[name] = {"s_per_round": [r["seconds"] for r in rec], "peak_gib": peak,
+                     "seconds": secs, "profile": pb}
+        del metrics, hist
+    same = []
+    for r, (a, b) in enumerate(zip(runs["packed"], runs["fused"])):
+        eq = (torch.equal(a["digests"], b["digests"])
+              and all(torch.equal(_bits(x), _bits(y)) if x.is_floating_point()
+                      else torch.equal(x, y) for x, y in zip(a["fault"], b["fault"])))
+        same.append(eq)
+    two = runs["fused"][-1].get("two_leaves_equal")
+    log(f"[16a] fused == packed per round (every chunk digest of theta, theta_hat, s and both "
+        f"mirrors; the fault state and meter): {same}; the embeddings and layer 0's wq of "
+        f"every tree equal bit for bit after the last round: {two}")
+    if not all(same) or not two:
+        raise AssertionError("phase 16a: the fused faulted run departs from the packed one")
+    return out
+
+
+def faulted_ft(dev, rows: dict | None) -> dict:
+    """16b: FT's six faulted rows (10 nodes, logistic, ``kq4b``, 400 rounds,
+    seeds 0 and 1) from 15d's pool, or run here with their fault-free
+    twins when phase 15 did not run, held by the reference's FT rules."""
+    from repro_torch.launch import comparisons as C
+
+    if rows is None:
+        task_list = [t for t in C.tasks(("ft",)) if t[1].endswith("|0") or t[1].count("|") == 2]
+        t0 = time.perf_counter()
+        rows = {f"{k[0]}|{k[1]}": v for k, v in
+                C.summarize(C.run_tasks(task_list, dev, workers=P15_WORKERS)).items()}
+        log(f"[16b] {len(task_list)} runs in {P15_WORKERS} processes: "
+            f"{time.perf_counter() - t0:.1f} s")
+    ref = {(r["schedule"], r["fault_spec"]): r
+           for r in json.loads((ROOT / "BENCH_FT.json").read_text())["rows"]
+           if r["dropout"] == 0.0 and r["schedule"] in C.FT_SCHEDULES}
+    failures = []
+    for sched in C.FT_SCHEDULES:
+        twin = rows[f"ft|{sched}|0"]
+        for spec in C.FT_FAULTS:
+            got, r = rows[f"ft|{sched}|0|{spec}"], ref[(sched, spec)]
+            checks = [
+                ("consensus_err <= 2x the twin's", got["consensus_err"]
+                 <= 2.0 * twin["consensus_err"]),
+                ("detected > 0 and resyncs > 0", got["faults_detected"] > 0 and got["resyncs"] > 0),
+                ("worst_acc >= the reference's - 0.05",
+                 got["worst_acc"] >= r["worst_acc"] - FT_ACC_BAND),
+                ("bits exact", got["bits_per_round"] == r["bits_per_round"]
+                 and got["bits_per_round_expected"] == r["bits_per_round_expected"]),
+                ("detected, resyncs within 20% of the reference's",
+                 abs(got["faults_detected"] - r["faults_detected"]) <= 0.2 * r["faults_detected"]
+                 and abs(got["resyncs"] - r["resyncs"]) <= 0.2 * r["resyncs"]),
+            ]
+            if spec.startswith("drop:0.1"):
+                checks.append(("worst_acc >= the twin's - 0.05",
+                               got["worst_acc"] >= twin["worst_acc"] - FT_ACC_BAND))
+            bad = [c for c, ok in checks if not ok]
+            log(f"[16b] FT {sched} {spec}: worst_acc {got['worst_acc']:.4f} (twin "
+                f"{twin['worst_acc']:.4f}, reference {r['worst_acc']:.4f}); consensus_err "
+                f"{got['consensus_err']:.4g} (twin {twin['consensus_err']:.4g}); detected "
+                f"{got['faults_detected']} resyncs {got['resyncs']} (reference "
+                f"{r['faults_detected']} / {r['resyncs']}); bits/round {got['bits_per_round']} / "
+                f"expected {got['bits_per_round_expected']} (reference {r['bits_per_round']} / "
+                f"{r['bits_per_round_expected']}); realized {got['bits_per_round_realized']:.2f}; "
+                f"{'ok' if not bad else 'FAILED: ' + '; '.join(bad)}")
+            if bad:
+                failures.append(f"FT {sched} {spec}")
+    if failures:
+        raise AssertionError(f"phase 16b: {failures}")
+    return {k: v for k, v in rows.items() if k.count("|") == 3}
+
+
+def faulted_wire(dev, ft_rows) -> dict[str, int]:
+    """Phase 16: 16a, then 16b; returns the gossip kernels' launch counts."""
+    total: dict[str, int] = {}
+    t0 = time.perf_counter()
+    faulted_full_width(dev, total)
+    log(f"[16a] took {time.perf_counter() - t0:.1f} s")
+    faulted_ft(dev, ft_rows)
     return total
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--turns", metavar="PARENT_ROOT",
                     help="instead of the phases: time the attention and decode rows of the "
@@ -3262,10 +3599,15 @@ def main(argv=None) -> int:
                 for k in SERVING_KERNELS:
                     row = zoo_row(arch, k)
                     launches[row] = launches.get(row, 0) + counts[k]
+    ft_rows = None
     if 15 in phases:
-        breadth = timed(15, lambda: trainer_breadth(dev))
+        breadth, ft_rows = timed(15, lambda: trainer_breadth(dev))
         for k in GOSSIP_KERNELS:
             launches[k] = launches.get(k, 0) + breadth.get(k, 0)
+    if 16 in phases:
+        faulted = timed(16, lambda: faulted_wire(dev, ft_rows))
+        for k in GOSSIP_KERNELS:
+            launches[k] = launches.get(k, 0) + faulted.get(k, 0)
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

@@ -13,12 +13,15 @@ A whole trainer state (:func:`save_state` / :func:`restore_state`) is
 written under the reference's ``TrainerState`` names -- ``step``,
 ``theta|...``, ``lam``, ``opt|step``, ``opt|mu|...``, ``consensus|theta_hat|...``,
 ``consensus|s|...`` (gradient tracking: ``consensus|model|...``,
-``consensus|tracker|...``, ``consensus|y|...``, ``consensus|d_prev|...``),
-``theta_avg|...`` -- so a checkpoint of the reference's state restores into
-the port.  The port's random generators have no counterpart there (the
-reference keeps one JAX key, ``rng``, which the port ignores): their states
-go under the port-only keys ``generator|gossip``, ``generator|dual`` and
-``generator|mask``, as uint8 arrays; a file without them leaves the
+``consensus|tracker|...``, ``consensus|y|...``, ``consensus|d_prev|...``;
+on a faulted wire also ``consensus|cache|<op>|...`` and
+``consensus|fault|{synced,stale,wait,backoff,detected,resyncs,bits}``, or
+``consensus|bits`` for the exact wire's meter), ``theta_avg|...`` -- so a
+checkpoint of the reference's state restores into the port.  The port's
+random generators have no counterpart there (the reference keeps one JAX
+key, ``rng``, which the port ignores): their states go under the port-only
+keys ``generator|gossip``, ``generator|dual``, ``generator|mask`` and
+``generator|fault``, as uint8 arrays; a file without them leaves the
 generators as they are.
 """
 from __future__ import annotations
@@ -31,6 +34,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.core.faults import FaultState, WireBits
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import _to_tensor, params_from_jax
 from repro_torch.optim import OptState
@@ -203,21 +207,28 @@ def restore_latest(path: str, tree_like, *, log=print, device="cuda"):
     return None, None
 
 
-_GENERATORS = ("gossip", "dual", "mask")
+_GENERATORS = ("gossip", "dual", "mask", "fault")
 
 
 def _consensus_tree(cons):
-    if cons == ():
+    if isinstance(cons, tuple) and not cons:
         return {}
+    if isinstance(cons, WireBits):  # the exact wire's faulted meter
+        return {"bits": cons.bits}
     if hasattr(cons, "tracker"):  # GTState
         return {"model": _consensus_tree(cons.model), "tracker": _consensus_tree(cons.tracker),
                 "y": cons.y, "d_prev": cons.d_prev}
-    return {"theta_hat": cons.theta_hat, "s": cons.s}
+    tree = {"theta_hat": cons.theta_hat, "s": cons.s}
+    if cons.cache:  # the NeighborCache: one mirror tree per union op
+        tree["cache"] = list(cons.cache)
+    if isinstance(cons.fault, FaultState):
+        tree["fault"] = cons.fault._asdict()
+    return tree
 
 
 def _generators(state) -> dict:
     return dict(zip(_GENERATORS, (state.generator, state.dual_generator,
-                                  state.mask_generator)))
+                                  state.mask_generator, state.fault_generator)))
 
 
 def state_tree(state) -> dict:

@@ -1,6 +1,7 @@
-"""AD-GDA core (PyTorch port of ``repro.core``): topologies and schedules,
-compressors, CHOCO gossip, the DRO duals, the composable trainer and the
-paper's baselines."""
+"""AD-GDA core (PyTorch port of ``repro.core``): topologies, schedules and
+their permute plans, compressors, CHOCO gossip, the union wire with its
+NeighborCache and wire faults, the DRO duals, the composable trainer and
+the paper's baselines."""
 from repro_torch.core.adgda import ADGDAConfig, adgda_trainer
 from repro_torch.core.baselines import (
     DRDSGDConfig,
@@ -19,12 +20,16 @@ from repro_torch.core.compression import (
 )
 from repro_torch.core.gossip import CHOCOState, choco_init, choco_round
 from repro_torch.core.topology import (
+    PermutePlan,
     Topology,
     TopologySchedule,
+    compile_permute_plan,
+    compile_schedule_plans,
     make_topology,
     make_topology_schedule,
 )
 from repro_torch.core.trainer import DecentralizedTrainer, TrainerState
+from repro_torch.core.wire import UnionWirePlan, compile_union_wire, init_neighbor_cache
 
 __all__ = [
     "ADGDAConfig",
@@ -35,17 +40,23 @@ __all__ = [
     "Compressor",
     "DecentralizedTrainer",
     "Identity",
+    "PermutePlan",
     "RandomQuantization",
     "TopK",
     "Topology",
     "TopologySchedule",
     "TrainerState",
+    "UnionWirePlan",
     "adgda_trainer",
     "choco_init",
     "choco_round",
     "choco_sgd",
+    "compile_permute_plan",
+    "compile_schedule_plans",
+    "compile_union_wire",
     "drdsgd_trainer",
     "drfa_trainer",
+    "init_neighbor_cache",
     "make_compressor",
     "make_topology",
     "make_topology_schedule",

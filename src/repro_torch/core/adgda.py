@@ -11,8 +11,9 @@ One step:
 :func:`adgda_trainer` assembles a :class:`DecentralizedTrainer` from an
 :class:`ADGDAConfig` (same fields and defaults as the reference): a static
 topology or a time-varying schedule with dropout, CHOCO or gradient-tracking
-consensus, microbatches or local steps.  Wire faults and the ``ppermute``
-backend raise (not yet ported).
+consensus, microbatches or local steps, and wire faults (``fault_spec``: the
+cached union round with digests and resync; the lambda gossip rides the
+same faulted messages).  The ``ppermute`` backend raises (not yet ported).
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ class ADGDAConfig:
     consensus: str = "choco"  # "choco" or "gt" (gradient tracking, a second lane)
     tracker_gamma: float | None = None  # gt only: the tracker lane's step size
     tracker_compressor: str | None = None  # gt only: the tracker lane's compressor
-    fault_spec: str | None = None  # not yet ported
+    fault_spec: str | None = None  # wire faults, e.g. "drop:0.05,corrupt:0.01,stale:2"
     spmd_axis_name: tuple | str | None = None  # no meaning here (one device)
     optimizer: str = "sgd"  # "sgd" (momentum/nesterov) or "adam"
     schedule: str = "exp"  # "const" | "exp" | "cosine"
@@ -79,15 +80,9 @@ class ADGDAConfig:
     nesterov: bool = False
 
     def check_ported(self) -> None:
-        """Raise for a setting outside the port: wire faults and the
-        ``ppermute`` backend."""
-        unported = {
-            "fault_spec": self.fault_spec is not None,
-            f"gossip_backend={self.gossip_backend!r}": self.gossip_backend != "rolled",
-        }
-        bad = [name for name, on in unported.items() if on]
-        if bad:
-            raise _not_ported(", ".join(bad))
+        """Raise for a setting outside the port: the ``ppermute`` backend."""
+        if self.gossip_backend != "rolled":
+            raise _not_ported(f"gossip_backend={self.gossip_backend!r}")
 
     def build(self) -> tuple[Topology | TopologySchedule, Compressor]:
         """(topology-or-schedule, compressor) for the consensus layer: a plain
@@ -142,10 +137,11 @@ def adgda_trainer(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None
         consensus = GradientTrackingConsensus(
             topology, compressor, config.gamma, tracker_gamma=config.tracker_gamma,
             tracker_compressor=config.tracker_compressor, packed=config.packed_gossip,
-            fused=config.fused_gossip)
+            fused=config.fused_gossip, faults=config.fault_spec)
     elif config.consensus == "choco":
         consensus = ChocoConsensus(topology, compressor, config.gamma,
-                                   packed=config.packed_gossip, fused=config.fused_gossip)
+                                   packed=config.packed_gossip, fused=config.fused_gossip,
+                                   faults=config.fault_spec)
     else:
         raise ValueError(f"unknown consensus {config.consensus!r}; choose choco or gt")
     # the dual's own gossip: a static schedule unwraps to its topology; a
@@ -154,9 +150,12 @@ def adgda_trainer(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None
                      if isinstance(topology, TopologySchedule) and topology.is_static
                      else topology)
     if config.robust:
+        # under faults the lambda gossip rides the consensus's faulted messages
         dual = ProjectedAscent(prior=prior, alpha=config.alpha, eta_lambda=config.eta_lambda,
                                regularizer=dro.make_regularizer(config.regularizer),
-                               topology=dual_topology)
+                               topology=dual_topology,
+                               mix_fn=consensus.wire_mix if consensus.faults is not None
+                               else None)
     else:
         dual = FrozenPrior(prior=prior)
     return DecentralizedTrainer(loss_fn, num_nodes=m, local=local, dual=dual,

@@ -54,7 +54,7 @@ class DRDSGDConfig:
     lr_decay: float = 1.0
     momentum: float = 0.0
     gossip_backend: str = "rolled"  # "ppermute" not yet ported
-    fault_spec: str | None = None  # not yet ported
+    fault_spec: str | None = None  # wire faults: a faulted edge leaves the round's mix
     track_average: bool = True
 
 

@@ -39,7 +39,12 @@ dispatch (its wire changes every round); ``fused=True`` with it raises.
 :func:`choco_round_lanes` runs several variables over one round (gradient
 tracking's model and tracker lanes), lane after lane on one generator.
 
-Faults and the ``ppermute`` backend are not yet ported (see ROADMAP.md).
+A faulted round (``faults=`` a :class:`~repro_torch.core.faults.FaultSpec`
+with the round's ``events``) runs the cached union-wire round of
+``core/exchange.py`` against the state's NeighborCache (``cache``) and
+fault state (``fault``); both are empty without faults, so every other
+path keeps its state and numerics.  The ``ppermute`` backend is not yet
+ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -79,16 +84,31 @@ Noise = Callable[[int, "int | None", tuple], torch.Tensor]
 class CHOCOState:
     theta_hat: Any  # tree, leaves [m, ...]
     s: Any  # tree, leaves [m, ...]
+    # NeighborCache (the cached union wire only): one theta_hat-shaped mirror
+    # per union op of each in-neighbour's public copy; () otherwise
+    cache: Any = ()
+    # the per-edge fault state (core.faults.FaultState) under a fault spec; ()
+    fault: Any = ()
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to repro_torch; see ROADMAP.md")
 
 
-def choco_init(theta_stacked) -> CHOCOState:
-    """Fresh CHOCO trackers (zeros shaped like the stacked model)."""
-    return CHOCOState(theta_hat=tree_map(torch.zeros_like, theta_stacked),
-                      s=tree_map(torch.zeros_like, theta_stacked))
+def choco_init(theta_stacked, *, cache_ops: int = 0, fault_ops: int | None = None) -> CHOCOState:
+    """Fresh CHOCO trackers (zeros shaped like the stacked model); with
+    ``cache_ops > 0`` also the NeighborCache of a union wire of that many
+    ops, and with ``fault_ops`` (the same count) the per-edge fault state."""
+    from repro_torch.core.faults import init_fault_state
+    from repro_torch.core.wire import init_neighbor_cache
+
+    first = tree_leaves(theta_stacked)[0]
+    return CHOCOState(
+        theta_hat=tree_map(torch.zeros_like, theta_stacked),
+        s=tree_map(torch.zeros_like, theta_stacked),
+        cache=init_neighbor_cache(theta_stacked, cache_ops) if cache_ops else (),
+        fault=(init_fault_state(first.shape[0], fault_ops, device=first.device)
+               if fault_ops is not None else ()))
 
 
 def _mix_leaf(x: torch.Tensor, topology: Topology) -> torch.Tensor:
@@ -248,6 +268,31 @@ def _round_leaves(leaves, hat_leaves, s_leaves, draw, round_one, block_scan_elem
                 dst.copy_(src)
 
 
+def noise_draw(compressor: Compressor, leaves, generator: torch.Generator | None,
+               noise: Noise | None):
+    """``draw(leaf_index, chunk_index, inner_shape)``: the uniform noise of
+    one encode of the stacked ``leaves``, from ``noise`` if given, else from
+    ``generator`` (None for a compressor that takes none)."""
+    m = leaves[0].shape[0]
+
+    def draw(li, ci, inner_shape):
+        shape = compressor.noise_shape(m, inner_shape)
+        if shape is None:
+            return None
+        if noise is not None:
+            xi = noise(li, ci, shape)
+            if tuple(xi.shape) != tuple(shape):
+                raise ValueError(f"noise for leaf {li} chunk {ci}: want {shape}, "
+                                 f"got {tuple(xi.shape)}")
+            return xi.to(device=leaves[li].device, dtype=torch.float32)
+        if generator is None:
+            raise ValueError(f"{type(compressor).__name__} needs a generator or noise=")
+        return torch.rand(shape, generator=generator, device=leaves[li].device,
+                          dtype=torch.float32)
+
+    return draw
+
+
 def check_fused(topology: Topology, compressor: Compressor) -> None:
     """The fused round needs a kernel compressor and a circulant topology;
     the reference falls back silently elsewhere, the port raises."""
@@ -262,15 +307,34 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
                 compressor: Compressor, *, generator: torch.Generator | None = None,
                 noise: Noise | None = None, packed: bool = True, fused: bool = False,
                 block_scan_elems: int = BLOCK_SCAN_ELEMS, mixing=None, mask=None,
-                backend: str = "rolled"):
+                backend: str = "rolled", schedule=None, step: int | None = None, union=None,
+                faults=None, events=None):
     """One compressed-consensus round over all leaves of a stacked tree.
 
     Returns (theta_new, state_new): the input trees, updated in place.
     ``generator`` draws the quantization noise (on the leaves' device)
-    unless ``noise`` supplies it.
+    unless ``noise`` supplies it.  ``faults`` runs the faulted cached round
+    (``core/exchange.py``) over ``union`` (or the union wire of ``schedule``
+    or ``topology``) at round ``step``, with the round's ``events``; a
+    ``fused`` faulted round encodes on the fused kernel with its digest.
     """
     if backend != "rolled":
         raise _not_ported(f"gossip backend {backend!r}")
+    if faults is not None:
+        from repro_torch.core.exchange import choco_round_cached_local
+
+        if mixing is not None:
+            raise ValueError("a faulted round mixes over the union wire's banks "
+                             "(schedule= / step= / mask=), not a dense mixing matrix")
+        return choco_round_cached_local(
+            theta_half, state, gamma, compressor, generator=generator, noise=noise,
+            union=union, fused=fused, block_scan_elems=block_scan_elems,
+            schedule=schedule, topology=topology, step=0 if step is None else step, mask=mask,
+            faults=faults, events=events)
+    if schedule is not None or step is not None or union is not None:
+        raise ValueError("the rolled round does not consume schedule / step / union: pass "
+                         "mixing=schedule.mixing_at(step, mask) (what ChocoConsensus.mix "
+                         "does)")
     time_varying = mixing is not None or mask is not None
     if fused and time_varying:
         raise ValueError("fused gossip runs a static circulant round; a time-varying or "
@@ -293,20 +357,7 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
         alive = (torch.ones(m, dtype=torch.float32, device=dev) if mask is None
                  else torch.as_tensor(mask, dtype=torch.float32).to(dev))
 
-    def draw(li, ci, inner_shape):
-        shape = compressor.noise_shape(m, inner_shape)
-        if shape is None:
-            return None
-        if noise is not None:
-            xi = noise(li, ci, shape)
-            if tuple(xi.shape) != tuple(shape):
-                raise ValueError(f"noise for leaf {li} chunk {ci}: want {shape}, "
-                                 f"got {tuple(xi.shape)}")
-            return xi.to(device=leaves[li].device, dtype=torch.float32)
-        if generator is None:
-            raise ValueError(f"{type(compressor).__name__} needs a generator or noise=")
-        return torch.rand(shape, generator=generator, device=leaves[li].device,
-                          dtype=torch.float32)
+    draw = noise_draw(compressor, leaves, generator, noise)
 
     def round_one(leaf, hat, s, xi):
         if time_varying:
@@ -331,17 +382,29 @@ class LaneRound(NamedTuple):
 def choco_round_lanes(lanes, topology: Topology, generator: torch.Generator | None = None, *,
                       noises=None, packed: bool = True, fused: bool = False,
                       block_scan_elems: int = BLOCK_SCAN_ELEMS, mixing=None, mask=None,
-                      backend: str = "rolled"):
+                      backend: str = "rolled", schedule=None, step: int | None = None,
+                      union=None, faults=None, events=None):
     """One multi-lane round on the rolled wire: each :class:`LaneRound`
     runs :func:`choco_round` over the same topology / W(t) / mask.  The
     reference folds lane k > 0's key out of the round key; here every lane
     draws from ``generator``, lane after lane (lane 0 first, so one lane is
     the single-lane wire), and ``noises[k]`` injects lane k's noise instead.
     Returns ``(thetas, states)``, one entry per lane (updated in place, as
-    :func:`choco_round`)."""
+    :func:`choco_round`).  Under ``faults`` the lanes run the cached round,
+    each with its own mirrors, fault state and ``events[k]``."""
     lanes = tuple(LaneRound(*lane) for lane in lanes)
     if not lanes:
         raise ValueError("choco_round_lanes needs at least one lane")
+    if faults is not None:
+        from repro_torch.core.exchange import choco_round_cached_local_lanes
+
+        if backend != "rolled":
+            raise _not_ported(f"gossip backend {backend!r}")
+        return choco_round_cached_local_lanes(
+            lanes, generator=generator, noises=noises, union=union,
+            fused=fused, block_scan_elems=block_scan_elems, schedule=schedule,
+            topology=topology, step=0 if step is None else step, mask=mask, faults=faults,
+            events=events)
     outs = [choco_round(lane.theta, lane.state, topology, lane.gamma, lane.compressor,
                         generator=generator,
                         noise=None if noises is None else noises[k], packed=packed,

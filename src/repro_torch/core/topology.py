@@ -13,7 +13,9 @@ analysis (spectral gaps, gamma, bits) and torch f32 for the round's mixing
 matrix (:meth:`TopologySchedule.mixing_at`); :class:`BernoulliDropout`
 adds per-round node dropout, its mask drawn from a ``torch.Generator``;
 :func:`masked_metropolis` reweights a phase on the surviving subgraph.
-The permute plans of the reference's ppermute backend are not ported.
+:class:`PermutePlan` (:func:`compile_permute_plan`,
+:func:`compile_schedule_plans`) compiles a phase into its exchange ops, the
+wire program ``core/wire.py`` unites across phases.
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ __all__ = [
     "MatchingSchedule",
     "BernoulliDropout",
     "make_topology_schedule",
+    "EdgeStep",
+    "PermutePlan",
+    "compile_permute_plan",
+    "compile_schedule_plans",
 ]
 
 
@@ -445,3 +451,185 @@ def make_topology_schedule(spec: str, m: int, *, dropout: float = 0.0, period: i
     if dropout > 0.0:
         sched = BernoulliDropout(sched, dropout)
     return sched
+
+
+# ======================================================== permute schedules
+# Compilation of a mixing matrix into an explicit *neighbor-exchange*
+# schedule: the wire program the cached union round (core/exchange.py)
+# executes -- one roll or gather of the node axis per op in one process
+# (permutes across processes are not yet ported) -- instead of a dense mix.
+#
+# Two forms, matching the two graph families:
+#
+# * circulant graphs (ring / torus / mesh) keep their shift decomposition —
+#   every shift is one global roll of the node axis;
+# * irregular graphs (erdos_renyi, star, matching phases) are decomposed
+#   into :class:`EdgeStep` barriers — partial permutations with distinct
+#   senders and receivers.  The greedy scheduler below always sends each
+#   receiver's *smallest pending sender*, so every node receives its
+#   neighbors in ascending id order (deterministic, and the closest
+#   permute-order analogue of the dense oracle's row-major accumulation).
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeStep:
+    """One barrier of pairwise sends: a partial permutation of the nodes.
+
+    ``perm`` is a tuple of (src, dst) node pairs with distinct sources and
+    distinct destinations (a partial permutation); ``weights``
+    is the length-m receive weight vector — ``weights[dst] = W[dst, src]``
+    for every pair, 0.0 for nodes that receive nothing this step.
+    """
+
+    perm: tuple[tuple[int, int], ...]
+    weights: tuple[float, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class PermutePlan:
+    """Neighbor-exchange schedule realizing one mixing matrix W.
+
+    Exactly one of the two wire forms is populated:
+
+    * ``shifts`` — the circulant decomposition, verbatim from
+      :attr:`Topology.shifts` (order preserved);
+    * ``steps`` — per-edge :class:`EdgeStep` barriers for irregular graphs.
+
+    ``self_weight`` is the diagonal of W (every node's own weight).
+    ``mixing_matrix()`` reconstructs the dense W exactly (element-level
+    copies, no arithmetic beyond the circulant accumulation the factories
+    themselves used) — the round-trip the tests hold against the reference.
+    """
+
+    name: str
+    num_nodes: int
+    shifts: tuple[tuple[int, float], ...] | None
+    steps: tuple[EdgeStep, ...]
+    self_weight: tuple[float, ...]
+
+    @property
+    def is_circulant(self) -> bool:
+        return self.shifts is not None
+
+    @property
+    def num_exchanges(self) -> int:
+        """Neighbor exchanges per round (the wire's barrier count)."""
+        return len(self.exchange_ops())
+
+    def exchange_ops(self) -> tuple[tuple[str, object], ...]:
+        """The executable op list, aligned index-for-index with
+        :meth:`sender_maps`: ``("shift", s)`` for a circulant roll by ``s``
+        (normalized mod m, deduplicated), ``("perm", pairs)`` for an
+        irregular edge step's (src, dst) partial permutation."""
+        m = self.num_nodes
+        ops: list[tuple[str, object]] = []
+        if self.shifts is not None:
+            seen = set()
+            for shift, _ in self.shifts:
+                s = shift % m
+                if s == 0 or s in seen:
+                    continue
+                seen.add(s)
+                ops.append(("shift", s))
+        else:
+            for step in self.steps:
+                ops.append(("perm", step.perm))
+        return tuple(ops)
+
+    def sender_maps(self) -> tuple[np.ndarray, ...]:
+        """One int array [m] per exchange, derived from (and therefore always
+        aligned index-for-index with) :meth:`exchange_ops`: ``snd[i]`` = the
+        node whose value node i receives (−1 when i receives nothing).  Each
+        adjacency edge appears exactly once — this is the op list the
+        masked-Metropolis weight computation runs over.
+        """
+        m = self.num_nodes
+        maps = []
+        for kind, arg in self.exchange_ops():
+            if kind == "shift":
+                maps.append((np.arange(m) - arg) % m)
+            else:
+                snd = np.full((m,), -1, np.int64)
+                for src, dst in arg:
+                    snd[dst] = src
+                maps.append(snd)
+        return tuple(maps)
+
+    def mixing_matrix(self) -> np.ndarray:
+        """Dense W reconstructed from the schedule — exact round-trip."""
+        m = self.num_nodes
+        if self.shifts is not None:
+            return _circulant_mixing(m, self.shifts)
+        w = np.zeros((m, m))
+        for step in self.steps:
+            for src, dst in step.perm:
+                w[dst, src] = step.weights[dst]
+        w[np.diag_indices(m)] = np.asarray(self.self_weight)
+        return w
+
+    def masked_mixing_matrix(self, mask) -> np.ndarray:
+        """Masked-Metropolis W on the surviving subgraph, computed the way
+        the union round computes it: participation bits travel the
+        plan's own exchanges, degrees are per-op sums of alive bits, and the
+        self weight is 1 − the op-ordered sum of edge weights.  Mirrors
+        :func:`masked_metropolis` (same formula on the same edge set) up to
+        f32 summation order — the host-side oracle for the dropout-rescale
+        round-trip test.
+        """
+        m = self.num_nodes
+        alive = np.asarray(mask, np.float32).reshape(m)
+        senders = self.sender_maps()
+        deg = np.zeros((m,), np.float32)
+        for snd in senders:
+            has = snd >= 0
+            deg[has] += alive[has] * alive[snd[has]]
+        w = np.zeros((m, m), np.float32)
+        off = np.zeros((m,), np.float32)
+        for snd in senders:
+            has = snd >= 0
+            i = np.nonzero(has)[0]
+            j = snd[i]
+            wij = alive[i] * alive[j] / (1.0 + np.maximum(deg[i], deg[j]))
+            w[i, j] = wij
+            off[i] += wij
+        w[np.diag_indices(m)] = 1.0 - off
+        return w
+
+
+def compile_permute_plan(topology: Topology) -> PermutePlan:
+    """Compile a :class:`Topology` into a :class:`PermutePlan`.
+
+    Circulant graphs keep their shift decomposition verbatim.  Irregular
+    graphs get a greedy edge decomposition: repeatedly form a partial
+    permutation by giving every receiver its smallest not-yet-received
+    sender (skipping receivers whose turn would reuse a sender already
+    claimed this step).  The step count is within one of the max degree for
+    every graph in the repo, and every node receives in ascending sender
+    order.
+    """
+    m = topology.num_nodes
+    self_weight = tuple(float(x) for x in np.diag(topology.mixing))
+    if topology.shifts is not None:
+        return PermutePlan(topology.name, m, tuple(topology.shifts), (), self_weight)
+    adj = np.asarray(topology.adjacency) - np.eye(m)
+    mixing = np.asarray(topology.mixing)
+    pending = {i: [int(j) for j in np.nonzero(adj[i] > 0)[0]] for i in range(m)}
+    steps: list[EdgeStep] = []
+    while any(pending.values()):
+        used_src: set[int] = set()
+        perm: list[tuple[int, int]] = []
+        weights = [0.0] * m
+        for i in range(m):
+            if pending[i] and pending[i][0] not in used_src:
+                j = pending[i].pop(0)
+                used_src.add(j)
+                perm.append((j, i))
+                weights[i] = float(mixing[i, j])
+        steps.append(EdgeStep(tuple(perm), tuple(weights)))
+    return PermutePlan(topology.name, m, None, tuple(steps), self_weight)
+
+
+def compile_schedule_plans(schedule: TopologySchedule) -> tuple[PermutePlan, ...]:
+    """One :class:`PermutePlan` per phase of a :class:`TopologySchedule` —
+    the per-phase wire programs that ``wire.compile_union_wire`` unites."""
+    return tuple(compile_permute_plan(t) for t in schedule.topologies)

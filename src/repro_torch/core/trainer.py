@@ -31,14 +31,21 @@ consensus.  A node that sits a round out keeps its theta and its optimizer
 moments (only the dropped rows are saved before the local update and put
 back after it), skips its dual ascent, and freezes its CHOCO trackers.
 
+Wire faults: with a fault spec (``faults=`` on the consensus) every round
+runs the cached union-wire round of ``core/exchange.py`` -- mirrors of each
+in-neighbour's ``theta_hat``, per-edge drop / corrupt / dup / delay events,
+digests, staleness-bounded mixing and dense resyncs -- and the lambda
+gossip rides the same faulted messages (the same events as the model
+lane).  ``bits_realized`` then reads the exchange's delivered-bits meter.
+
 Randomness: the state holds one ``torch.Generator`` per stream -- the
 gossip's quantization noise (every lane, on the trainer's device), the
-dual's client sampling and the participation masks (both on the CPU) --
-each drawn in a fixed order and saved in checkpoints.  The reference
-splits one JAX key per round instead, so the tests inject its draws:
-``step(..., noise=, mask=, sampled=)``.
+dual's client sampling, the participation masks and the wire's fault
+events (the last three on the CPU) -- each drawn in a fixed order and saved
+in checkpoints.  The reference splits one JAX key per round instead, so the
+tests inject its draws: ``step(..., noise=, mask=, sampled=, fault_u=)``.
 
-Faults and the ``ppermute`` backend are not yet ported (see ROADMAP.md).
+The ``ppermute`` backend is not yet ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import dro, wire
 from repro_torch.core.compression import Compressor, Identity
+from repro_torch.core.faults import FaultEvents, WireBits, parse_fault_spec, sample_events
 from repro_torch.core.gossip import (
     BLOCK_SCAN_ELEMS,
     CHOCOState,
@@ -67,6 +75,7 @@ from repro_torch.core.gossip import (
     payload_total_bits,
 )
 from repro_torch.core.topology import Topology, TopologySchedule
+from repro_torch.core.wire import UnionWirePlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import f32_full
 from repro_torch.optim import Optimizer, OptState, Schedule
@@ -105,6 +114,7 @@ class TrainerState:
     generator: torch.Generator  # the gossip's quantization noise (every lane)
     dual_generator: torch.Generator  # the dual's sampling (DRFA's clients), CPU
     mask_generator: torch.Generator  # participation masks (dropout), CPU
+    fault_generator: torch.Generator  # the wire's fault events, CPU
 
 
 def _batch_slice(batch, k: int, n: int, layout: str):
@@ -242,9 +252,10 @@ class DualUpdate:
         return torch.ones_like(losses)
 
     def update(self, lam: torch.Tensor, losses: torch.Tensor, ctx=None, *, mixing=None,
-               mask=None) -> torch.Tensor:
+               mask=None, step=None, events=None) -> torch.Tensor:
         """Advance lambda; a time-varying round passes its dense W(t) and
-        participation mask (duals that do not gossip ignore them)."""
+        participation mask, a faulted one its round index and the model
+        lane's fault events (duals that do not gossip ignore them)."""
         raise NotImplementedError
 
     def bits_per_round(self) -> float:
@@ -263,6 +274,8 @@ class ProjectedAscent(DualUpdate):
 
     Every node keeps its own copy of lambda (state [m, m]); a dropped node
     skips its ascent step, and a time-varying round mixes with W(t).
+    ``mix_fn`` (the consensus's ``wire_mix`` under faults) carries the
+    lambda gossip over the consensus's own faulted messages instead.
     """
 
     prior: np.ndarray
@@ -270,6 +283,7 @@ class ProjectedAscent(DualUpdate):
     eta_lambda: float
     regularizer: dro.Regularizer
     topology: Topology | TopologySchedule
+    mix_fn: Callable | None = None
 
     def init(self, m, device):
         return _prior_on(self.prior, device)[None].expand(m, m).clone()
@@ -277,7 +291,7 @@ class ProjectedAscent(DualUpdate):
     def grad_weights(self, lam, losses):
         return (torch.diagonal(lam) / _prior_on(self.prior, lam.device)).float()
 
-    def update(self, lam, losses, ctx=None, *, mixing=None, mask=None):
+    def update(self, lam, losses, ctx=None, *, mixing=None, mask=None, step=None, events=None):
         m = lam.shape[0]
         prior = _prior_on(self.prior, lam.device)
         node_ids = torch.arange(m, device=lam.device)
@@ -288,6 +302,8 @@ class ProjectedAscent(DualUpdate):
             lam_half = torch.where((mask > 0).reshape(m, 1), lam_half, lam)
         if mixing is not None:
             return mix_stacked_with(lam_half, mixing)
+        if self.mix_fn is not None:
+            return self.mix_fn(lam_half, step=step, mask=mask, events=events)
         return mix_stacked(lam_half, self.topology)
 
     def bits_per_round(self) -> float:
@@ -368,17 +384,22 @@ class SampledAscent(DualUpdate):
 class Consensus:
     """How the half-step models travel the wire.  ``schedule`` is set when
     the wire is time-varying; the trainer then passes the round index, the
-    participation ``mask`` and the round's dense ``mixing`` to :meth:`mix`."""
+    participation ``mask`` and the round's dense ``mixing`` to :meth:`mix`.
+    Under a fault spec (``faults``) it passes the round index, the mask and
+    the round's fault ``events`` (one per lane) instead of ``mixing``."""
 
     needs_theta_prev: bool = False  # gradient tracking reads the pre-update theta
     federated: bool = False  # True -> state.theta has no node axis
     schedule: TopologySchedule | None = None
+    faults = None  # FaultSpec of the wire, or None
+    union: UnionWirePlan | None = None  # the union wire under faults
+    fault_lanes: int = 1  # fault draws per round (one per wire lane)
 
     def init(self, theta_stacked):
         return ()
 
     def mix(self, theta_half, state, generator, ctx=None, *, step=None, mask=None, mixing=None,
-            noise=None, theta_prev=None):
+            noise=None, theta_prev=None, events=None):
         raise NotImplementedError
 
     @property
@@ -394,11 +415,55 @@ class Consensus:
         return float(np.float32(self.bits_per_round(theta_template, mode="max")))
 
 
-def _check_wire(backend: str, faults) -> None:
+def _check_wire(backend: str) -> None:
+    if backend not in ("rolled", "ppermute"):
+        raise ValueError(f"unknown gossip backend {backend!r}; choose rolled or ppermute")
     if backend != "rolled":
         raise _not_ported(f"gossip backend {backend!r}")
-    if faults is not None:
-        raise _not_ported("wire faults (fault_spec)")
+
+
+def _resolve_union(schedule, topology, faults) -> UnionWirePlan | None:
+    """The union wire of a faulted consensus (one plan per consensus: it
+    sizes the mirrors and the fault state, picks the round's weights and
+    bills the bits); None without faults -- the rolled round has no union."""
+    if faults is None:
+        return None
+    from repro_torch.core.exchange import resolve_union
+
+    return resolve_union(None, schedule, topology)
+
+
+def _union_degree(union: UnionWirePlan, schedule, mode: str, mask) -> float:
+    """Billing degree of the union wire: every union edge carries one
+    message every round, unless its sender is dead."""
+    if mode == "max":
+        return float(union.max_out_degree)
+    if mode == "expected":
+        rate = schedule.dropout_rate if schedule is not None else 0.0
+        return union.max_out_degree * (1.0 - rate)
+    if mode == "realized":
+        if mask is None:
+            raise ValueError("mode='realized' needs the round's participation mask")
+        return union.realized_out_degree(mask)
+    raise ValueError(f"unknown bits mode {mode!r}; choose max/expected/realized")
+
+
+def _fault_bits_meter(cons_state):
+    """The faulted wire's per-node delivered-bits meter in ``cons_state``:
+    ``CHOCOState.fault.bits``, a bare :class:`~repro_torch.core.faults.WireBits`
+    (the exact wire), or the sum of a :class:`GTState`'s two lanes; None
+    when there is none."""
+    if isinstance(cons_state, GTState):
+        a, b = _fault_bits_meter(cons_state.model), _fault_bits_meter(cons_state.tracker)
+        return a + b if a is not None and b is not None else None
+    if isinstance(cons_state, WireBits):
+        return cons_state.bits
+    bits = getattr(getattr(cons_state, "fault", None), "bits", None)
+    return bits
+
+
+def _meter_max(meter) -> float:
+    return float(np.float32(meter.max().item()))
 
 
 def _split_schedule(topology):
@@ -420,24 +485,31 @@ class ChocoConsensus(Consensus):
     dispatch of ``gossip.choco_round``, on a topology or a schedule.  A
     time-varying schedule runs the masked round; ``fused=True`` with it, or
     with a compressor or topology the fused round cannot take, raises (the
-    reference silently falls back)."""
+    reference silently falls back).  ``faults`` (a spec or its string) runs
+    every round on the cached union wire, with mirrors and fault state in
+    the consensus state; ``fused=True`` then encodes on the fused kernel's
+    digest variant (static circulant wire only, as without faults)."""
 
     def __init__(self, topology: Topology | TopologySchedule, compressor: Compressor,
                  gamma: float | str | None = None, *, packed: bool = True,
                  fused: bool = False, backend: str = "rolled", faults=None):
-        _check_wire(backend, faults)
+        _check_wire(backend)
         self.topology, self.schedule, self._gamma_topology = _split_schedule(topology)
+        self.faults = parse_fault_spec(faults)
         if fused and self.schedule is not None:
+            path = ("the faulted round, whose fused encode has no participation mask"
+                    if self.faults is not None else "the masked path, which has no fused form")
             raise ValueError(
                 f"fused gossip runs a static circulant round; the time-varying wire "
-                f"{self.schedule.name!r} (a schedule or dropout) runs the masked path, "
-                f"which has no fused form: drop --fused-gossip")
+                f"{self.schedule.name!r} (a schedule or dropout) runs {path}: drop "
+                f"--fused-gossip")
         if fused:
             check_fused(self.topology, compressor)
         self.compressor = compressor
         self.gamma_spec = gamma
         self.packed = packed
         self.fused = fused
+        self.union = _resolve_union(self.schedule, self.topology, self.faults)
         # provisional gamma until init()/mix() see the real leaf sizes
         self.gamma = self._resolve_gamma(4096)
 
@@ -465,32 +537,63 @@ class ChocoConsensus(Consensus):
             return float(self.gamma_spec)
         return 0.5 * max(delta, 1e-3)
 
+    def _choco_init(self, theta_stacked) -> CHOCOState:
+        n = self.union.n_ops if self.union is not None else 0
+        return choco_init(theta_stacked, cache_ops=n,
+                          fault_ops=n if self.faults is not None else None)
+
     def init(self, theta_stacked) -> CHOCOState:
         self.gamma = self._resolve_gamma(self._encode_dim(theta_stacked))
-        return choco_init(theta_stacked)
+        return self._choco_init(theta_stacked)
 
     def _round_mixing(self, step, mask, mixing):
+        if self.faults is not None:
+            return None  # the union wire's banks give the round's weights
         if self.schedule is not None and mixing is None:
             return self.schedule.mixing_at(0 if step is None else step, mask)
         return mixing
 
+    def _wire_kw(self, step, events) -> dict:
+        """The faulted round's wire arguments (none without faults)."""
+        if self.faults is None:
+            return {}
+        return dict(schedule=self.schedule, step=0 if step is None else step, union=self.union,
+                    faults=self.faults, events=events)
+
     def mix(self, theta_half, state, generator, ctx=None, *, step=None, mask=None, mixing=None,
-            noise=None, theta_prev=None):
+            noise=None, theta_prev=None, events=None):
         gamma = self._resolve_gamma(self._encode_dim(theta_half))
         return choco_round(theta_half, state, self.topology, gamma, self.compressor,
                            generator=generator, noise=noise, packed=self.packed,
                            fused=self.fused, mixing=self._round_mixing(step, mask, mixing),
-                           mask=mask)
+                           mask=mask, **self._wire_kw(step, events))
+
+    def wire_mix(self, tree, *, step=None, mask=None, events=None):
+        """Uncompressed gossip of a stacked tree over this consensus's wire:
+        under faults the lambda gossip rides the model lane's messages (the
+        same events) on the memoryless faulted mix; its bits stay billed at
+        the dual's constant."""
+        if self.faults is None:
+            return mix_stacked(tree, self.topology)
+        from repro_torch.core.exchange import mix_stacked_faulted_local
+
+        mixed, _ = mix_stacked_faulted_local(tree, union=self.union, step=step or 0, mask=mask,
+                                             faults=self.faults, events=events)
+        return mixed
 
     @property
     def wire_format(self) -> wire.WireFormat:
         if isinstance(self.compressor, Identity) or not self.packed:
             return wire.DENSE
-        return wire.PAYLOAD
+        return wire.HAT_DELTA if self.union is not None else wire.PAYLOAD
 
     def bits_per_round(self, theta_template, *, mode: str = "max", step=None, mask=None,
                        compressor=None) -> float:
         comp = compressor if compressor is not None else self.compressor
+        if self.union is not None:
+            # every union edge carries one hat-delta every round: the union degree
+            return payload_bits(comp, theta_template, self.schedule,
+                                degree=_union_degree(self.union, self.schedule, mode, mask))
         return payload_bits(comp, theta_template, self.schedule or self.topology, mode=mode,
                             step=step, mask=mask)
 
@@ -502,7 +605,13 @@ class ChocoConsensus(Consensus):
         return {lane.name: one for lane in self.wire_format}
 
     def bits_realized(self, theta_template, step, mask, consensus_state=None):
+        if self.faults is not None:
+            meter = _fault_bits_meter(consensus_state)
+            if meter is not None:  # the exchange's delivered bits
+                return _meter_max(meter)
         total = payload_total_bits(self.compressor, theta_template)
+        if self.union is not None:
+            return _realized_bits(total, self.union.realized_out_degree_traced(mask))
         topo = self.schedule or self.topology
         return _realized_bits(total, topo.realized_degree_traced(step, mask))
 
@@ -565,7 +674,8 @@ class GradientTrackingConsensus(ChocoConsensus):
     is :class:`ChocoConsensus` exactly.  The update runs in place over
     column blocks, so only the pre-update theta (``theta_prev``, one copy
     the trainer keeps) adds a theta-sized tree.  ``noise`` is a pair, the
-    model lane's and the tracker lane's.
+    model lane's and the tracker lane's, and so are the fault ``events``:
+    each lane keeps its own mirrors and fault state.
     """
 
     def __init__(self, topology, compressor, gamma=None, *, tracker: bool = True,
@@ -586,6 +696,10 @@ class GradientTrackingConsensus(ChocoConsensus):
     @property
     def needs_theta_prev(self) -> bool:
         return self.tracker
+
+    @property
+    def fault_lanes(self) -> int:
+        return 2 if self.tracker else 1
 
     @property
     def _tracker_comp(self) -> Compressor:
@@ -610,13 +724,14 @@ class GradientTrackingConsensus(ChocoConsensus):
         if not self.tracker:
             return base
         zeros = lambda: tree_map(torch.zeros_like, theta_stacked)
-        return GTState(model=base, tracker=choco_init(theta_stacked), y=zeros(), d_prev=zeros())
+        return GTState(model=base, tracker=self._choco_init(theta_stacked), y=zeros(),
+                       d_prev=zeros())
 
     def mix(self, theta_half, state, generator, ctx=None, *, step=None, mask=None, mixing=None,
-            noise=None, theta_prev=None):
+            noise=None, theta_prev=None, events=None):
         if not self.tracker:
             return super().mix(theta_half, state, generator, ctx, step=step, mask=mask,
-                               mixing=mixing, noise=noise)
+                               mixing=mixing, noise=noise, events=events)
         if theta_prev is None:
             raise ValueError("GradientTrackingConsensus.mix needs theta_prev (the round's "
                              "pre-local-update theta)")
@@ -628,7 +743,8 @@ class GradientTrackingConsensus(ChocoConsensus):
             (LaneRound(theta_half, state.model, gamma, self.compressor),
              LaneRound(state.y, state.tracker, tgamma, self._tracker_comp)),
             self.topology, generator, noises=noise, packed=self.packed, fused=self.fused,
-            mixing=self._round_mixing(step, mask, mixing), mask=mask)
+            mixing=self._round_mixing(step, mask, mixing), mask=mask,
+            **self._wire_kw(step, events))
         return x_new, GTState(model=model_new, tracker=tracker_new, y=y_new,
                               d_prev=state.d_prev)
 
@@ -664,9 +780,13 @@ class GradientTrackingConsensus(ChocoConsensus):
                 for lane in self.wire_format}
 
     def bits_realized(self, theta_template, step, mask, consensus_state=None):
-        one = super().bits_realized(theta_template, step, mask)
         if not self.tracker:
-            return one
+            return super().bits_realized(theta_template, step, mask, consensus_state)
+        if self.faults is not None:
+            meter = _fault_bits_meter(consensus_state)
+            if meter is not None:  # both lanes' delivered bits
+                return _meter_max(meter)
+        one = super().bits_realized(theta_template, step, mask)
         scale = 2.0
         if self.tracker_compressor is not None:
             model_total = payload_total_bits(self.compressor, theta_template)
@@ -677,15 +797,33 @@ class GradientTrackingConsensus(ChocoConsensus):
 
 class ExactConsensus(Consensus):
     """Uncompressed gossip: theta_i <- sum_j w_ij theta_j (DR-DSGD's wire),
-    on a topology or a schedule (W(t), dropped nodes hold their model)."""
+    on a topology or a schedule (W(t), dropped nodes hold their model).
+    Under ``faults`` the wire is memoryless: a faulted message leaves the
+    round's mix, and the state is the delivered-bits meter (WireBits)."""
 
     def __init__(self, topology: Topology | TopologySchedule, *, backend: str = "rolled",
                  faults=None):
-        _check_wire(backend, faults)
+        _check_wire(backend)
         self.topology, self.schedule, _ = _split_schedule(topology)
+        self.faults = parse_fault_spec(faults)
+        self.union = _resolve_union(self.schedule, self.topology, self.faults)
+
+    def init(self, theta_stacked):
+        if self.faults is None:
+            return ()
+        first = tree_leaves(theta_stacked)[0]
+        return WireBits(bits=torch.zeros(first.shape[0], dtype=torch.float32,
+                                         device=first.device))
 
     def mix(self, theta_half, state, generator, ctx=None, *, step=None, mask=None, mixing=None,
-            noise=None, theta_prev=None):
+            noise=None, theta_prev=None, events=None):
+        if self.faults is not None:
+            from repro_torch.core.exchange import mix_stacked_faulted_local
+
+            mixed, bits = mix_stacked_faulted_local(theta_half, union=self.union,
+                                                    step=step or 0, mask=mask,
+                                                    faults=self.faults, events=events)
+            return mixed, WireBits(bits=bits.to(state.bits.device))
         if self.schedule is not None and mixing is None:
             mixing = self.schedule.mixing_at(0 if step is None else step, mask)
         if mixing is not None:
@@ -694,11 +832,20 @@ class ExactConsensus(Consensus):
 
     def bits_per_round(self, theta_template, *, mode: str = "max", step=None,
                        mask=None) -> float:
+        if self.union is not None:  # the faulted wire moves a message on every union op
+            return payload_bits(Identity(), theta_template, self.schedule,
+                                degree=_union_degree(self.union, self.schedule, mode, mask))
         return payload_bits(Identity(), theta_template, self.schedule or self.topology,
                             mode=mode, step=step, mask=mask)
 
     def bits_realized(self, theta_template, step, mask, consensus_state=None):
+        if self.faults is not None:
+            meter = _fault_bits_meter(consensus_state)
+            if meter is not None:
+                return _meter_max(meter)
         total = payload_total_bits(Identity(), theta_template)
+        if self.union is not None:
+            return _realized_bits(total, self.union.realized_out_degree_traced(mask))
         topo = self.schedule or self.topology
         return _realized_bits(total, topo.realized_degree_traced(step, mask))
 
@@ -712,11 +859,11 @@ class FedAvg(Consensus):
     federated = True
 
     def __init__(self, num_sampled: int, *, backend: str = "rolled"):
-        _check_wire(backend, None)
+        _check_wire(backend)
         self.num_sampled = num_sampled
 
     def mix(self, theta_locals, state, generator, ctx=None, *, step=None, mask=None,
-            mixing=None, noise=None, theta_prev=None):
+            mixing=None, noise=None, theta_prev=None, events=None):
         m = tree_leaves(theta_locals)[0].shape[0]
         sampled = ctx
         if sampled is None:
@@ -796,7 +943,7 @@ class DecentralizedTrainer:
         """Stack ``params`` (one model, any device) to every node on the
         trainer's device (federated: keep one server copy).  The generators
         are seeded from ``seed``: gossip ``seed``, dual ``seed + 2**32``,
-        mask ``seed + 2**33``."""
+        mask ``seed + 2**33``, fault ``seed + 3 * 2**32``."""
         stacked = self._stacked(params)
         theta0 = (tree_map(lambda p: p.to(self.device, copy=True), params) if self.federated
                   else stacked)
@@ -811,24 +958,50 @@ class DecentralizedTrainer:
             generator=torch.Generator(device=self.device).manual_seed(seed),
             dual_generator=torch.Generator().manual_seed(seed + (1 << 32)),
             mask_generator=torch.Generator().manual_seed(seed + (2 << 32)),
+            fault_generator=torch.Generator().manual_seed(seed + (3 << 32)),
         )
 
     # ------------------------------------------------------------------ step
+    def _fault_events(self, state: TrainerState, fault_u):
+        """The round's fault events, one per wire lane: drawn from the fault
+        generator lane after lane ([n_ops, m] uniforms each), or from the
+        injected ``fault_u`` (one draw, or a sequence with one per lane)."""
+        cons = self.consensus
+        lanes = cons.fault_lanes
+        if fault_u is None:
+            us = [torch.rand((cons.union.n_ops, self.num_nodes), generator=state.fault_generator,
+                             dtype=torch.float32) for _ in range(lanes)]
+        else:
+            us = [fault_u] if lanes == 1 else list(fault_u)
+        events = [sample_events(cons.faults, u if isinstance(u, torch.Tensor)
+                                else torch.from_numpy(np.array(u, np.float32)))
+                  for u in us]
+        return events[0] if lanes == 1 else tuple(events)
+
     def step(self, state: TrainerState, batch: Any, *, noise=None, mask=None,
-             sampled=None) -> tuple[TrainerState, dict]:
+             sampled=None, fault_u=None) -> tuple[TrainerState, dict]:
         """One round; ``state``'s tensors are updated in place and returned in
         a new :class:`TrainerState` with the aux metrics (device tensors).
-        ``noise`` / ``mask`` / ``sampled`` inject the gossip noise, the
-        participation mask and the dual's client sample in place of draws."""
+        ``noise`` / ``mask`` / ``sampled`` / ``fault_u`` inject the gossip
+        noise, the participation mask, the dual's client sample and the
+        wire's fault draw ([n_ops, m] uniforms; a pair for gradient
+        tracking's two lanes) in place of draws."""
         schedule = self.schedule
         needs_mask = schedule is not None and schedule.dropout_rate > 0
+        faulted = getattr(self.consensus, "faults", None) is not None
         if mask is not None and not needs_mask:
             raise ValueError("mask= needs a wire with dropout")
+        if fault_u is not None and not faulted:
+            raise ValueError("fault_u= needs a wire with a fault spec")
         if needs_mask:
             mask = (schedule.mask_at(state.mask_generator, state.step) if mask is None
                     else torch.tensor(np.asarray(mask, np.float32)))
+        # the lambda gossip rides the model lane's faulted messages
+        events = self._fault_events(state, fault_u) if faulted else None
+        dual_events = events if isinstance(events, FaultEvents) or events is None else events[0]
+        # a faulted round mixes over the union wire's banks, never a dense W(t)
         mixing = (schedule.mixing_at(state.step, mask).to(self.device)
-                  if schedule is not None else None)
+                  if schedule is not None and not faulted else None)
         mask_dev = None if mask is None else mask.to(self.device)
         ctx = self.dual.begin(state.lam, state.dual_generator, inject=sampled)
 
@@ -851,11 +1024,12 @@ class DecentralizedTrainer:
                 x.index_copy_(0, rows, old)
             del saved
         with record_function("dual"):
-            lam_new = self.dual.update(state.lam, losses, ctx, mixing=mixing, mask=mask_dev)
+            lam_new = self.dual.update(state.lam, losses, ctx, mixing=mixing, mask=mask_dev,
+                                       step=state.step, events=dual_events)
         with record_function("consensus"):
             theta_new, cons_new = self.consensus.mix(
                 theta, state.consensus, state.generator, ctx, step=state.step, mask=mask_dev,
-                mixing=mixing, noise=noise, theta_prev=theta_prev)
+                mixing=mixing, noise=noise, theta_prev=theta_prev, events=events)
         del theta_prev
 
         theta_avg = state.theta_avg
@@ -881,7 +1055,8 @@ class DecentralizedTrainer:
         if mask is not None:
             aux["participation"] = mask
         aux["bits_realized"] = float(
-            np.float32(self.consensus.bits_realized(theta_new, state.step, mask))
+            np.float32(self.consensus.bits_realized(theta_new, state.step, mask,
+                                                    consensus_state=cons_new))
             + np.float32(self.dual.bits_per_round()))
         new_state = dataclasses.replace(state, step=state.step + 1, theta=theta_new,
                                         lam=lam_new, opt=opt_new, consensus=cons_new,
@@ -899,9 +1074,16 @@ class DecentralizedTrainer:
         """Bits sent per round by the busiest node (model payload + the
         dual's traffic); ``per_iteration=True`` divides by ``local_steps``.
         ``mode`` bills the payload at the max, expected or realized degree
-        (the dual's m floats stay at their upper bound)."""
-        bits = (self.consensus.bits_per_round(state.theta, mode=mode, step=step, mask=mask)
-                + self.dual.bits_per_round())
+        (the dual's m floats stay at their upper bound); under faults
+        ``"realized"`` reads the delivered-bits meter of the last round."""
+        meter = (_fault_bits_meter(state.consensus)
+                 if mode == "realized" and getattr(self.consensus, "faults", None) is not None
+                 else None)
+        if meter is not None:
+            bits = float(meter.max()) + self.dual.bits_per_round()
+        else:
+            bits = (self.consensus.bits_per_round(state.theta, mode=mode, step=step, mask=mask)
+                    + self.dual.bits_per_round())
         if per_iteration:
             bits /= self.local.local_steps
         return bits

@@ -17,9 +17,11 @@
 //     the reference's `tn - hat`), quantizes it with the node's scales, packs
 //     it, and writes hat + dequant(q) back, cast once to the leaf dtype;
 //   * the optional digest (int32 wraparound sum of hat_new's bits per node)
-//     reduces inside each warp and lands with one atomicAdd per warp --
-//     blocks run in any order, and wraparound addition commutes, so the sum
-//     equals the sequential one exactly;
+//     reduces inside each warp, then across the block's warps, and lands
+//     with one atomicAdd per block and node -- blocks run in any order, and
+//     wraparound addition commutes, so the sum equals the sequential one
+//     exactly (one atomic per warp, 196,608 of them on 3 addresses at the
+//     faulted round's chunk, ran the variant at 46% of its bound);
 //   * fused_mix decodes each of the K payloads for its node straight from
 //     the packed bytes.  The payload slab of shift k for node i is
 //     k * kstride + (i - shift_k) mod m: kstride = m reads K stacked rolled
@@ -105,11 +107,32 @@ fused_encode_kernel(const T* __restrict__ tn, const T* __restrict__ hat,
   }
   if constexpr (DIGEST) {
     // a warp never straddles two nodes (a node owns a multiple of 128
-    // threads), and threads past `total` add 0
+    // threads) and lies wholly before or past `total`; a block may straddle
+    // two nodes, so thread 0 adds its warps' sums node by node
+    constexpr int WARPS = THREADS / 32;
+    __shared__ uint32_t warp_sum[WARPS];
+    __shared__ int warp_node[WARPS];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
-    if ((threadIdx.x & 31) == 0 && t < total)
-      atomicAdd(reinterpret_cast<unsigned int*>(digest + node), part);
+    if ((threadIdx.x & 31) == 0) {
+      warp_sum[threadIdx.x >> 5] = part;
+      warp_node[threadIdx.x >> 5] = t < total ? node : -1;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t acc = 0u;
+      int cur = -1;
+      for (int w = 0; w < WARPS; ++w) {
+        if (warp_node[w] < 0) continue;
+        if (warp_node[w] != cur) {
+          if (cur >= 0) atomicAdd(reinterpret_cast<unsigned int*>(digest + cur), acc);
+          cur = warp_node[w];
+          acc = 0u;
+        }
+        acc += warp_sum[w];
+      }
+      if (cur >= 0) atomicAdd(reinterpret_cast<unsigned int*>(digest + cur), acc);
+    }
   }
 }
 

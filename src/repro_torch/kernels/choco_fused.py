@@ -6,7 +6,8 @@ Replaces ``repro/kernels/choco_fused.py`` (``fused_encode_pallas``,
 
 * ``fused_encode`` -- the residual ``theta_new - hat`` in the leaf dtype,
   stochastic quantization with per-node scales, bit-packing, and
-  ``hat <- hat + Q(resid)``, in one pass; optionally the per-node int32
+  ``hat <- hat + Q(resid)``, in one pass; optionally (``with_digest``, the
+  faulted round's encode, :func:`fused_encode_leaf`) the per-node int32
   wraparound digest of ``hat_new`` (``core.faults.digest``);
 * ``fused_mix`` -- decode every neighbour's packed payload and accumulate
   ``s + sum_k w_k deq(payload_k)`` in f32, never materialising a decoded
@@ -46,6 +47,8 @@ SHIFT_BATCH = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 encode_launches = _build.LaunchCounter("fused_encode")
+# the digest variant counts apart: it runs on the faulted round only
+encode_digest_launches = _build.LaunchCounter("fused_encode_digest")
 mix_launches = _build.LaunchCounter("fused_mix")
 
 _ENC_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -105,7 +108,7 @@ def fused_encode(theta_new, hat, xi, scales, bits: int, with_digest: bool = Fals
                  dig.data_ptr() if with_digest else None, _DTYPES[tn.dtype], m, rows, bits,
                  _build.stream_ptr(tn))
     _build.raise_on_error(err, "fused_encode")
-    encode_launches.add()
+    (encode_digest_launches if with_digest else encode_launches).add()
     return (lvl, sign, hat_new, dig) if with_digest else (lvl, sign, hat_new)
 
 
@@ -194,6 +197,56 @@ def node_norms(resid: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(resid.reshape(resid.shape[0], -1), dim=1)
 
 
+def _encode_pass(theta_new, hat, xi, bits: int, with_digest: bool):
+    """The fused encode of a stacked chunk [m, ...]: residual norms and
+    scales as PyTorch ops (the packed path's ``node_norms``, so the payloads
+    agree bit for bit), then one ``fused_encode`` over the padded grid.
+    Returns (encode outputs, norms, dequant scales, grid3, unpad)."""
+    m = theta_new.shape[0]
+    inner_shape = tuple(theta_new.shape[1:])
+    d = theta_new[0].numel()
+    flat_tn = theta_new.reshape(m, -1)
+    flat_hat = hat.reshape(m, -1)
+    norms = node_norms((flat_tn - flat_hat).float())
+
+    pack = 8 // bits
+    unit = 8 * pack * LANES
+    pad = (-d) % unit
+    rows = (d + pad) // LANES
+
+    def grid3(x):
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        return x.reshape(m, rows, LANES)
+
+    def unpad(x):
+        return x.reshape(m, -1)[:, :d].reshape((m,) + inner_shape)
+
+    if tuple(xi.shape) != (m, rows, LANES):
+        raise ValueError(f"noise for a [{m}, {d}] leaf at {bits} bits must be "
+                         f"{(m, rows, LANES)}, got {tuple(xi.shape)}")
+    scale_enc = encode_scale(norms, bits)
+    scale_deq = norms / f32_full(norms, (1 << bits) * tau_for(d, bits))
+    scales = torch.stack([scale_enc, scale_deq], dim=1)
+    enc_out = fused_encode(grid3(flat_tn), grid3(flat_hat), xi, scales, bits,
+                           with_digest=with_digest)
+    return enc_out, norms, scale_deq, grid3, unpad
+
+
+def fused_encode_leaf(theta_new, hat, xi, bits: int):
+    """The faulted round's encode of a stacked chunk [m, ...] on the digest
+    variant: one pass gives the packed payload, ``hat_new`` and the
+    sender's per-node digest of it.
+
+    Returns (payload {"levels", "signs", "norm"} -- the packed quantizer's,
+    bit for bit -- hat_new shaped like ``hat``, digest [m] int32 equal to
+    ``core.faults.digest(hat_new)``: the zero padding quantizes to exact
+    zeros, so the padded grid digests as the unpadded chunk)."""
+    (lvl, sign, hat_new_g, dig), norms, _, _, unpad = _encode_pass(theta_new, hat, xi, bits,
+                                                                   True)
+    return {"levels": lvl, "signs": sign, "norm": norms}, unpad(hat_new_g), dig
+
+
 def fused_round_leaf(leaf, hat, s, xi, shifts: Sequence[tuple[int, float]], gamma, bits: int,
                      *, with_digest: bool = False):
     """One CHOCO round for a stacked leaf [m, ...] on the fused path.
@@ -209,34 +262,10 @@ def fused_round_leaf(leaf, hat, s, xi, shifts: Sequence[tuple[int, float]], gamm
     ``hat_new``.
     """
     m = leaf.shape[0]
-    inner_shape, dtype = leaf.shape[1:], leaf.dtype
-    d = leaf[0].numel()
-
-    # averaging step and residual norms: PyTorch ops, in the leaf dtype
+    dtype = leaf.dtype
+    # averaging step: a PyTorch op, in the leaf dtype
     theta_new = leaf + (s - hat) * dtype_scalar(gamma, dtype)
-    flat_tn = theta_new.reshape(m, -1)
-    flat_hat = hat.reshape(m, -1)
-    norms = node_norms((flat_tn - flat_hat).float())
-
-    pack = 8 // bits
-    unit = 8 * pack * LANES
-    pad = (-d) % unit
-    rows = (d + pad) // LANES
-
-    def grid3(x):
-        if pad:
-            x = torch.nn.functional.pad(x, (0, pad))
-        return x.reshape(m, rows, LANES)
-
-    if tuple(xi.shape) != (m, rows, LANES):
-        raise ValueError(f"noise for a [{m}, {d}] leaf at {bits} bits must be "
-                         f"{(m, rows, LANES)}, got {tuple(xi.shape)}")
-    scale_enc = encode_scale(norms, bits)
-    scale_deq = norms / f32_full(norms, (1 << bits) * tau_for(d, bits))
-    scales = torch.stack([scale_enc, scale_deq], dim=1)
-
-    enc_out = fused_encode(grid3(flat_tn), grid3(flat_hat), xi, scales, bits,
-                           with_digest=with_digest)
+    enc_out, _, scale_deq, grid3, unpad = _encode_pass(theta_new, hat, xi, bits, with_digest)
     lvl, sign, hat_new_g = enc_out[:3]
 
     # the f32 s grid is carried across shift batches and cast once at the end
@@ -246,9 +275,6 @@ def fused_round_leaf(leaf, hat, s, xi, shifts: Sequence[tuple[int, float]], gamm
         batch = shifts[lo:lo + SHIFT_BATCH]
         wscale = torch.stack([w * torch.roll(scale_deq, sh, 0) for sh, w in batch])
         fused_mix_shifted(lvl, sign, s_new_g, wscale, [sh for sh, _ in batch], bits)
-
-    def unpad(x):
-        return x.reshape(m, -1)[:, :d].reshape((m,) + tuple(inner_shape))
 
     out = (theta_new, unpad(hat_new_g), unpad(s_new_g).to(dtype))
     return out + (enc_out[3],) if with_digest else out

@@ -123,6 +123,11 @@ class KernelQuantization(Compressor):
     def fused_round(self, leaf, hat, s, xi, topology, gamma):
         return fused_choco_round_leaf(leaf, hat, s, xi, topology, gamma, self.bits)
 
+    def fused_encode(self, theta_new, hat, xi):
+        """The faulted round's one-pass encode (the fused kernel's digest
+        variant): (payload, hat_new, digest [m] int32) of a stacked chunk."""
+        return _fused.fused_encode_leaf(theta_new, hat, xi, self.bits)
+
     @property
     def delta(self):
         return 0.0  # see delta_for

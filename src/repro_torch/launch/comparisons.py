@@ -4,8 +4,10 @@ benchmarks' settings (``benchmarks/bench_faults.py``,
 ``rotated_minority_classification``, ``q4b`` quantization (``kq4b``: the
 same quantizer on the CUDA kernels).
 
-* ``ft`` -- suite FT's fault-free rows: static ring, round-robin ring +
-  torus and one-peer matchings, each at dropout 0, 0.1 and 0.3 (400 rounds);
+* ``ft`` -- suite FT's rows: static ring, round-robin ring + torus and
+  one-peer matchings, each at dropout 0, 0.1 and 0.3, and each under the
+  wire faults ``drop:0.1,stale:2`` and ``corrupt:0.05,stale:2`` at dropout
+  0 (400 rounds);
 * ``ksweep`` -- cells of the gradient-tracking x local-steps sweep at a fixed
   budget of 800 gradient iterations (rounds = 800 / K, batch 50 K);
 * ``t5`` -- Table 5 on ``rotated_minority``: AD-GDA, AD-GDA-K5,
@@ -21,7 +23,8 @@ port draws its own.
 Each run is one task, ``(suite, name, seed[, samples])``; :func:`run_tasks` runs them
 in this process or in a pool of worker processes (one card can hold many:
 the rounds are bound by the host's per-op launches).  Each result carries
-the worst-node accuracy, the bits (per round, expected, realized, per
+the worst-node accuracy, the final consensus error, the fault detections and
+resyncs (network totals), the bits (per round, expected, realized, per
 iteration, total), the seconds and the kernel launches of the run.
 
   PYTHONPATH=src python -m repro_torch.launch.comparisons --only ft,ksweep,t5 --device cpu
@@ -46,15 +49,19 @@ from repro_torch.core import (
 )
 from repro_torch.data import rotated_minority_classification
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves
 
 __all__ = ["logistic_init", "logistic_apply", "loss_fn", "make_adgda", "tasks", "run_task",
-           "run_tasks", "FT_SCHEDULES", "FT_DROPOUTS", "KSWEEP_CELLS", "T5_ALGOS"]
+           "run_tasks", "FT_SCHEDULES", "FT_DROPOUTS", "FT_FAULTS", "KSWEEP_CELLS", "T5_ALGOS"]
 
 M = 10
 FT_SCHEDULES = {"static-ring": {"topology": "ring"},
                 "rr-ring-torus": {"topology_schedule": "roundrobin:ring,torus"},
                 "matching": {"topology_schedule": "matching:8"}}
 FT_DROPOUTS = (0.0, 0.1, 0.3)
+# the wire-fault sweep runs on the full graph, so each faulted row has a
+# fault-free twin (same schedule, dropout 0) to be held against
+FT_FAULTS = ("drop:0.1,stale:2", "corrupt:0.05,stale:2")
 KSWEEP_CELLS = {"choco@8": ("choco", 8), "choco@16": ("choco", 16), "gt@16": ("gt", 16)}
 # name -> (robust, local steps, consensus) for the AD-GDA family
 T5_ALGOS = {"AD-GDA": (True, 1, "choco"), "AD-GDA-K5": (True, 5, "choco"),
@@ -96,10 +103,33 @@ def make_adgda(m: int, *, robust: bool = True, compressor: str = "kq4b", device=
     return (adgda_trainer if robust else choco_sgd)(cfg, loss_fn, device=device)
 
 
+def _fault_telemetry(cons) -> tuple[float, float]:
+    """Network totals of (digest detections, dense resyncs) over every
+    lane's fault state; 0.0 without faults."""
+    lanes = (cons.model, cons.tracker) if hasattr(cons, "tracker") else (cons,)
+    det = res = 0.0
+    for lane in lanes:
+        fault = getattr(lane, "fault", None)
+        if hasattr(fault, "detected"):
+            det += float(fault.detected.sum())
+            res += float(fault.resyncs.sum())
+    return det, res
+
+
+def _consensus_err(theta) -> float:
+    """sum_i ||theta_i - theta_bar||^2 over the leaves, in f32 on the host
+    (the reference benchmark's own reduction)."""
+    err = 0.0
+    for leaf in leaves(theta):
+        x = leaf.detach().cpu().numpy().astype(np.float32)
+        err += float(((x - x.mean(0)) ** 2).sum())
+    return err
+
+
 def _train(trainer, data, rounds: int, batch: int, seed: int, device, stacked_k=None,
            samples=None):
     """``rounds`` rounds from zeros (``samples``: DRFA's client bitmask of
-    each round); returns (worst accuracy, bits info)."""
+    each round); returns (worst accuracy, bits and fault info)."""
     state = trainer.init(logistic_init(data.dim, data.num_classes, device), seed=seed)
     gen = data.batches(batch, seed=seed)
     bits = float(trainer.bits_per_round(state))
@@ -114,7 +144,10 @@ def _train(trainer, data, rounds: int, batch: int, seed: int, device, stacked_k=
         state, aux = trainer.step(state, (torch.from_numpy(xb).to(device),
                                           torch.from_numpy(yb).to(device)), sampled=sampled)
         realized += aux["bits_realized"]
-    info = {"bits_per_round": bits,
+    detected, resyncs = _fault_telemetry(state.consensus)
+    info = {"consensus_err": (_consensus_err(state.theta) if not trainer.federated
+                              else 0.0),
+            "faults_detected": detected, "resyncs": resyncs, "bits_per_round": bits,
             "bits_per_round_expected": float(trainer.bits_per_round(state, mode="expected")),
             "bits_per_iteration": float(trainer.bits_per_round(state, per_iteration=True)),
             "bits_per_round_realized": realized / rounds, "bits_realized_total": realized}
@@ -127,6 +160,7 @@ def tasks(suites=("ft", "ksweep", "t5"), seeds=(0, 1)) -> list[tuple]:
     for seed in seeds:
         if "ft" in suites:
             out += [("ft", f"{s}|{d:g}", seed) for s in FT_SCHEDULES for d in FT_DROPOUTS]
+            out += [("ft", f"{s}|0|{f}", seed) for s in FT_SCHEDULES for f in FT_FAULTS]
         if "ksweep" in suites:
             out += [("ksweep", name, seed) for name in KSWEEP_CELLS]
         if "t5" in suites:
@@ -146,8 +180,9 @@ def run_task(task, device="cuda") -> dict:
     before = _build.launch_counts()
     t0 = time.perf_counter()
     if suite == "ft":
-        sched, dropout = name.split("|")
-        trainer = make_adgda(M, dropout=float(dropout), device=dev, **FT_SCHEDULES[sched])
+        sched, dropout, *fault = name.split("|")
+        trainer = make_adgda(M, dropout=float(dropout), device=dev,
+                             fault_spec=fault[0] if fault else None, **FT_SCHEDULES[sched])
         worst, info = _train(trainer, data, 400, 50, seed, dev)
     elif suite == "ksweep":
         consensus, k = KSWEEP_CELLS[name]
@@ -201,8 +236,9 @@ def summarize(results: list[dict]) -> dict:
     rows: dict = {}
     for r in results:
         rows.setdefault((r["suite"], r["name"]), []).append(r)
-    keys = ("worst_acc", "bits_per_round", "bits_per_round_expected", "bits_per_iteration",
-            "bits_per_round_realized", "bits_realized_total", "seconds")
+    keys = ("worst_acc", "consensus_err", "faults_detected", "resyncs", "bits_per_round",
+            "bits_per_round_expected", "bits_per_iteration", "bits_per_round_realized",
+            "bits_realized_total", "seconds")
     return {k: {f: float(np.mean([r[f] for r in rs])) for f in keys}
             for k, rs in rows.items()}
 

@@ -31,8 +31,20 @@ trackers, the step and every generator's state) every
 ``--checkpoint-every`` rounds and at the end, and the network mean to
 ``<checkpoint>_model.npz``; ``--resume`` restores the newest loadable state
 and fast-forwards the token stream, so the run continues as if it had not
-stopped.  Not yet ported (they raise, see ROADMAP.md): ``--fault-spec`` and
-``--gossip-backend ppermute``.
+stopped.
+
+Wire faults, as the reference's:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --nodes 3 \
+      --topology ring --compressor kq4b --fault-spec drop:0.2,corrupt:0.1,stale:0 \
+      [--fused-gossip]
+
+``--fault-spec`` drops, garbles, duplicates or delays each message of the
+cached union wire (mirrors of every in-neighbour's ``theta_hat``, digests,
+staleness-bounded mixing, dense resyncs with backoff); each round logs its
+detections, resyncs and realized bits.  With ``--fused-gossip`` the encode
+runs on the fused kernel's digest variant.  Not yet ported (it raises, see
+ROADMAP.md): ``--gossip-backend ppermute``.
 
 Programmatic callers get the run's metrics from :func:`main`, and may pass
 ``wrap_step(step, run, state)`` to run one round inside their own context (a
@@ -81,7 +93,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="edge probability for --topology erdos_renyi")
     ap.add_argument("--topology-seed", type=int, default=0,
                     help="graph-sampling seed (erdos_renyi, matching schedules)")
-    ap.add_argument("--fault-spec", default=None, help="not yet ported")
+    ap.add_argument("--fault-spec", default=None,
+                    help="wire faults, e.g. 'drop:0.05,corrupt:0.01,stale:2': per-edge "
+                         "drop / corrupt / dup / delay with digest detection and "
+                         "staleness-bounded resync")
     ap.add_argument("--compressor", default="q4b",
                     help="none | qXb | kqXb (CUDA kernels, packed wire, fused round) | "
                          "topK | btopK (top-K%% values + indices)")
@@ -125,6 +140,19 @@ def _parser() -> argparse.ArgumentParser:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _fault_totals(cons) -> dict | None:
+    """Cumulative detections and resyncs over every lane's fault state, and
+    the busiest node's delivered bits of the last round (None without a
+    per-edge fault state)."""
+    lanes = [cons.model, cons.tracker] if hasattr(cons, "tracker") else [cons]
+    states = [lane.fault for lane in lanes if hasattr(getattr(lane, "fault", None), "detected")]
+    if not states:
+        return None
+    return {"detected": sum(int(f.detected.sum()) for f in states),
+            "resyncs": sum(int(f.resyncs.sum()) for f in states),
+            "bits_max": float(sum(f.bits for f in states).max())}
 
 
 def _resume(trainer, params, args):
@@ -204,6 +232,8 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
         wire += f"+drop{args.dropout:g}"
     if args.consensus == "gt":
         wire += f"+gt[{trainer.consensus.wire_format}]"
+    if trainer.consensus.faults is not None:
+        wire += f"+faults[{trainer.consensus.faults}]"
     print(f"arch={cfg.name} params={n_params:,} nodes={args.nodes} "
           f"compressor={comp_name} topology={wire}", flush=True)
     io = {"save_seconds": [], "save_bytes": [], "restore_seconds": None}
@@ -242,10 +272,17 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
                         "bits_realized": aux["bits_realized"]})
         if "participation" in aux:
             history[-1]["participation"] = aux["participation"].tolist()
+        fault_totals = _fault_totals(state.consensus)
+        if fault_totals is not None:
+            history[-1]["faults"] = fault_totals
         if step % args.log_every == 0 or step == args.steps - 1:
             losses = np.asarray(history[-1]["losses"])
             alive = (f"alive={int(sum(history[-1]['participation']))}/{args.nodes}  "
                      if "participation" in history[-1] else "")
+            if "faults" in history[-1]:
+                f = history[-1]["faults"]
+                alive += (f"detected={f['detected']} resyncs={f['resyncs']} "
+                          f"bits_realized={history[-1]['bits_realized']:.6e}  ")
             print(
                 f"step {step:5d}  worst={losses.max():.4f}  mean={losses.mean():.4f}  "
                 f"consensus={history[-1]['consensus_err']:.3e}  {alive}"

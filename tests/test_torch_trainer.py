@@ -143,15 +143,35 @@ def test_train_cli_flags_run_on_the_cpu(flag, tmp_path, reference_metric_keys):
 
 
 @pytest.mark.parametrize("flag,exc,match", [
-    (["--fault-spec", "drop:0.1"], NotImplementedError, "not yet ported.*ROADMAP"),
+    (["--fault-spec", "drop"], ValueError, "bad fault-spec item"),
+    (["--fused-gossip", "--compressor", "kq4b", "--dropout", "0.1", "--fault-spec", "drop:0.1"],
+     ValueError, "fused encode has no participation mask"),
     (["--gossip-backend", "ppermute"], NotImplementedError, "not yet ported.*ROADMAP"),
     (["--fused-gossip", "--compressor", "kq4b", "--dropout", "0.1"], ValueError,
      "masked path"),
-], ids=["fault-spec", "ppermute", "fused-dropout"])
+], ids=["malformed-fault-spec", "fused-dropout-faults", "ppermute", "fused-dropout"])
 def test_train_cli_flags_outside_the_port_raise(flag, exc, match):
     with pytest.raises(exc, match=match):
         ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1", "--device", "cpu",
                      *flag])
+
+
+def test_train_cli_trains_under_wire_faults(capsys):
+    """``--fault-spec`` trains through the faulted cached round and logs each
+    round's detections, resyncs and realized bits; the history's realized
+    bits are the trainer's meter plus the dual's constant."""
+    res = ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu", "--steps", "2",
+                       "--nodes", "3", "--batch-per-node", "2", "--seq", "16",
+                       "--fault-spec", "drop:0.2,stale:0", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "faults[drop:0.2,stale:0]" in out and out.count("detected=") == 2
+    assert "resyncs=" in out and "bits_realized=" in out
+    hist = res["history"]
+    assert len(hist) == 2 and all(np.isfinite(h["losses"]).all() for h in hist)
+    for h in hist:
+        f = h["faults"]
+        assert f["detected"] >= 0 and f["resyncs"] >= 0
+        assert h["bits_realized"] == float(np.float32(f["bits_max"]) + np.float32(32 * 3 * 2))
 
 
 def test_training_with_attention_kernels_raises():
