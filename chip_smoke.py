@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases 2,14      # kernels, then MoE / SSM / VLM / enc-dec configs
     python3 chip_smoke.py --phases 1,2,15    # kernels, then the trainer's breadth (15a-15d)
     python3 chip_smoke.py --phases 1,2,16    # kernels, then the faulted wire (16a, 16b)
+    python3 chip_smoke.py --phases 1,9,16,17 # the trainer, the faulted wire, then both on
+                                             # rank processes (17a, 17b)
     python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
                                              # and this one in turns (no phases)
 
@@ -72,8 +74,8 @@ Phases (any failure exits non-zero):
      engine; ``serve.py``), internvl2-2b with ``patches`` and whisper-small
      with ``frames`` (prefill + decode with flash and int8 KV against the
      plain path, the engine, ``serve.py``); peak memory and ms/token;
- 15. the trainer's breadth at full width: (a) ``launch/train.py`` on 4 nodes
-     with 25% dropout over round-robin ring + torus and over one-peer
+ 15. the trainer's breadth at full width (15a and 15c on 14 of the 28
+     layers): (a) ``launch/train.py`` on 4 nodes for 3 rounds with 25% dropout over round-robin ring + torus and over one-peer
      matchings (``kq4b``, the masked round on the quantize / dequantize
      kernels), then round-robin with block top-k, then 2 nodes with SGD
      momentum 0.9: each round's mask logged, a dropped node's theta,
@@ -107,7 +109,19 @@ Phases (any failure exits non-zero):
      resyncs > 0, drop rows' worst accuracy >= the twin's - 0.05, worst
      accuracy >= the reference's - 0.05, bits exact, detections and
      resyncs within 20% of the reference's.
-Phases 4-6, 9, 11, 12, 13, 14, 15 and 16 are the main paths: launch counters are
+ 17. the multi-process wire: ``launch/train.py --gossip-backend ppermute``
+     on rank processes that share the card (gloo through page-locked host
+     buffers, the env a launcher sets): (a) 4 nodes on 2 ranks, ``kq4b``,
+     3 rounds packed then fused; (b) 3 nodes on 3 ranks, ``kq4b`` fused,
+     ``--fault-spec drop:0.2,corrupt:0.1,stale:0``, 4 rounds.  Each rank
+     records per round the chunk digests of its rows of theta, theta_hat, s
+     (and the mirrors), which must equal the one-process run's (phase 9's,
+     16a's, or a run of its own) round by round, with the losses, the
+     consensus error (1e-6), the fault state and the meter; launches per
+     rank = its block's share of the chunk plan; the bytes each rank sends
+     a round = the formula (PERF.md); seconds, wire seconds and peak memory
+     per rank, one 17a fused round profiled on each rank.
+Phases 4-6, 9, 11, 12, 13, 14, 15, 16 and 17 are the main paths: launch counters are
 zeroed just before each run and read just after, and every kernel the run
 goes through must have launched (in phases 11, 13 and 14, once per attention
 layer and model forward).  Phase 2 also checks and times the attention and
@@ -1820,6 +1834,19 @@ def round_full_width(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# per-round records of the one-process runs that phase 17 holds its ranks
+# against: "9/packed", "9/fused" (phase 9) and "16a/fused" (phase 16)
+ROUND_RECORDS: dict[str, list] = {}
+
+
+def _round_record(state, aux) -> dict:
+    """Chunk digests of theta, theta_hat, s (and any mirrors) after a round,
+    with its losses and consensus error, on the host."""
+    cons = state.consensus
+    return {"digests": _chunk_digests([state.theta, cons.theta_hat, cons.s, *cons.cache]).cpu(),
+            "losses": aux["losses"].tolist(), "consensus_err": float(aux["consensus_err"])}
+
+
 # ------------------------------------------------------------------ phase 9
 TRAIN_ARGS = ["--arch", QWEN, "--nodes", "4", "--batch-per-node", "4", "--seq", "128",
               "--compressor", "kq4b", "--steps", "3", "--log-every", "1"]
@@ -1834,11 +1861,13 @@ GOSSIP_KERNEL_NAMES = ("quantize_kernel", "dequantize_kernel", "fused_encode_ker
                        "fused_mix_kernel", "block_topk_kernel")
 
 
-def _device_events(prof) -> list[tuple[str, int, int, bool]]:
+def _device_events(prof, host: dict | None = None) -> list[tuple[str, int, int, bool]]:
     """(name, start ns, end ns, is a range annotation) of every event on the
     card's timeline, read from the profiler's chrome trace (written and
     parsed in C): building the profiler's Python event tree over every host
-    op of a full-width round takes tens of seconds."""
+    op of a full-width round takes tens of seconds.  ``host``, if given,
+    gets the host ms of the trainer's sections (their ``record_function``
+    ranges on the CPU side of the same trace: it can be exported once)."""
     import os
     import tempfile
 
@@ -1851,6 +1880,11 @@ def _device_events(prof) -> list[tuple[str, int, int, bool]]:
     finally:
         os.remove(path)
     trace = trace["traceEvents"] if isinstance(trace, dict) else trace
+    if host is not None:
+        for e in trace:
+            if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e["name"] in ROUND_SECTIONS):
+                host[e["name"]] = host.get(e["name"], 0.0) + e["dur"] / 1e3
     out = [(e["name"], int(e["ts"] * 1e3), int((e["ts"] + e["dur"]) * 1e3),
             e["cat"] == "gpu_user_annotation")
            for e in trace if e.get("ph") == "X"
@@ -1860,13 +1894,13 @@ def _device_events(prof) -> list[tuple[str, int, int, bool]]:
     return out
 
 
-def _profile_breakdown(prof, wall_s: float) -> dict:
+def _profile_breakdown(prof, wall_s: float, host: dict | None = None) -> dict:
     """Kernel time of one profiled round, by the trainer's sections (its
     ``record_function`` ranges, whose device-side spans bracket the kernels
     they launched; a section may recur, as the local steps do) and, inside
     the consensus, gossip kernels vs other ops."""
     t0 = time.perf_counter()
-    events = _device_events(prof)
+    events = _device_events(prof, host)
     spans: dict[str, list] = {}
     for name, lo, hi, is_range in events:
         if is_range and name in ROUND_SECTIONS:
@@ -1939,17 +1973,21 @@ def train_full_width(dev) -> dict[str, int]:
         torch.cuda.reset_peak_memory_stats()
         prof_out = {}
 
-        def wrap_step(step, run, state):
+        def wrap_step(step, run, state, name=name):
             if step != 1:
-                return run()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
                 out = run()
-                torch.cuda.synchronize()
-                prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            else:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            if name in ("packed", "fused"):  # phase 17a's one-process reference
+                ROUND_RECORDS.setdefault(f"9/{name}", []).append(_round_record(*out))
             return out
 
         _build.reset_launch_counts()
+        ROUND_RECORDS.pop(f"9/{name}", None)
         metrics = train.main(TRAIN_ARGS + extra, wrap_step=wrap_step, compressor=comp)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
@@ -2856,10 +2894,12 @@ def masked_full_width(dev, total) -> dict:
     cfg = get_config(QWEN)
     topk = KernelBlockTopK(0.25, 1024)
     pinned: dict = {}  # host buffers of the dropped rows, kept across rounds and runs
-    # name, nodes, rounds, schedule spec, extra flags, compressor object
-    runs = (("roundrobin", 4, 4, "roundrobin:ring,torus", [], None),
-            ("matching", 4, 4, "matching:8", [], None),
-            ("block_topk", 4, 4, "roundrobin:ring,torus", [], topk),
+    # name, nodes, rounds, schedule spec, extra flags, compressor object; the
+    # 4-node runs' masks drop node 0 in round 0 and nodes 1, 3 in round 1, and
+    # round 2 rejoins them (a fourth round, all alive, was cut for phase 17's time)
+    runs = (("roundrobin", 4, 3, "roundrobin:ring,torus", [], None),
+            ("matching", 4, 3, "matching:8", [], None),
+            ("block_topk", 4, 3, "roundrobin:ring,torus", [], topk),
             # the seed drops node 1 in round 2, after two rounds of momentum
             ("momentum", 2, 3, "ring", ["--momentum", "0.9"], None))
     out = {}
@@ -2979,7 +3019,7 @@ def gt_full_width(dev, total) -> dict:
     from repro_torch.launch import train
 
     cfg = get_config(QWEN)
-    m, steps, K = 2, 3, 4
+    m, steps, K = 2, 2, 4  # two rounds: the second is the "later" one (a third was cut)
     n_enc = _chunk_plan(cfg, m)
     shifts = 2  # ring(2) is the 2-node mesh: shifts 0 and 1
     expect = {"fused": {"fused_encode": 2 * n_enc, "fused_mix": 2 * n_enc * -(-shifts // 8)},
@@ -3208,6 +3248,30 @@ def comparisons_on_card(dev, total) -> dict:
     return {"seconds": secs, "rows": {f"{k[0]}|{k[1]}": v for k, v in rows.items()}}
 
 
+# 15a and 15c run qwen3-1.7b at full width on 14 of its 28 layers: 15a holds
+# the masked round's rows and launches, 15c the checkpoints' round trip, at
+# any depth; the cut keeps the whole run near 1000 s with phase 17 (PR 22)
+P15_LAYERS = 14
+
+
+@contextlib.contextmanager
+def _cut_depth(layers: int):
+    """``launch/train.py`` and the phase's own expectations see qwen3-1.7b
+    with ``layers`` of its layers, at full width."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    full = configs.get_config
+    cut = dataclasses.replace(full(QWEN), num_layers=layers)
+    patched = lambda name: cut if name == QWEN else full(name)
+    configs.get_config = train.get_config = patched
+    log(f"[15] qwen3-1.7b cut to {layers} of {full(QWEN).num_layers} layers, full width")
+    try:
+        yield cut
+    finally:
+        configs.get_config = train.get_config = full
+
+
 def trainer_breadth(dev) -> tuple[dict[str, int], dict]:
     """Phase 15: 15a, 15b, then 15c with 15d beside it (15d's processes are
     host-bound and light on the card, 15c is mostly checkpoint I/O); returns
@@ -3218,13 +3282,15 @@ def trainer_breadth(dev) -> tuple[dict[str, int], dict]:
     total: dict[str, int] = {}
     for label, fn in (("15a", masked_full_width), ("15b", gt_full_width)):
         t0 = time.perf_counter()
-        fn(dev, total)
+        with _cut_depth(P15_LAYERS) if label == "15a" else contextlib.nullcontext():
+            fn(dev, total)
         log(f"[{label}] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     side: dict[str, int] = {}  # 15d's launches, counted in its own processes
     with cf.ThreadPoolExecutor(1) as pool:
         comparisons = pool.submit(comparisons_on_card, dev, side)
-        resume_full_width(dev, total)
+        with _cut_depth(P15_LAYERS):
+            resume_full_width(dev, total)
         log(f"[15c] took {time.perf_counter() - t0:.1f} s (15d beside it)")
         rows = comparisons.result()["rows"]
     log(f"[15c+15d] took {time.perf_counter() - t0:.1f} s")
@@ -3375,6 +3441,8 @@ def faulted_full_width(dev, total) -> dict:
                         raise AssertionError(f"phase 16a {name} round {step}: op {k} node {i} "
                                              f"unsynced, yet every chunk digest equals {j}'s")
             rec.append({"digests": _chunk_digests(trees(new)).cpu(),
+                        "losses": aux["losses"].tolist(),
+                        "consensus_err": float(aux["consensus_err"]),
                         "fault": [x.clone() for x in fs], "seconds": secs,
                         "events": {f: getattr(ev, f).int().tolist() for f in ("drop", "corrupt")},
                         "detected": fs.detected.tolist(), "resyncs": fs.resyncs.tolist(),
@@ -3427,6 +3495,7 @@ def faulted_full_width(dev, total) -> dict:
         if not all(math.isfinite(x) for h in hist for x in h["losses"] + [h["consensus_err"]]):
             raise AssertionError(f"phase 16a {name}: non-finite losses or consensus error")
         runs[name] = rec
+        ROUND_RECORDS[f"16a/{name}"] = rec  # phase 17b's one-process reference
         out[name] = {"s_per_round": [r["seconds"] for r in rec], "peak_gib": peak,
                      "seconds": secs, "profile": pb}
         del metrics, hist
@@ -3507,15 +3576,367 @@ def faulted_wire(dev, ft_rows) -> dict[str, int]:
     return total
 
 
+# ----------------------------------------------------------------- phase 17
+# the multi-process wire: launch/train.py --gossip-backend ppermute on R rank
+# processes that share the card (gloo through page-locked host buffers)
+P17A_ARGS = TRAIN_ARGS + ["--gossip-backend", "ppermute"]
+P17B_ROUNDS = 4
+P17B_ARGS = P15_ARGS + ["--nodes", "3", "--steps", str(P17B_ROUNDS), "--topology", "ring",
+                        "--fault-spec", P16_SPEC, "--fused-gossip"]
+P17_TIMEOUT = 600  # seconds a world may take before its ranks are killed
+
+
+def _payload_row_bytes(d: int, bits: int = 4) -> int:
+    """Bytes of one node's packed payload for an encode of d elements:
+    levels and signs of the padded [rows, 128] grid, and one f32 (the norm,
+    or the fused round's dequantize scale)."""
+    from repro_torch.kernels.ops import KernelQuantization
+
+    rows = KernelQuantization(bits).noise_shape(1, (d,))[1]
+    return rows * 128 * bits // 8 + rows * 128 // 8 + 4
+
+
+def _chunk_sizes(cfg, m: int) -> list[tuple[int, int]]:
+    """(elements per node, bytes per element) of every encode of the chunk
+    plan, in the gossip's order."""
+    from repro_torch.core.gossip import _scan_plan
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    out = []
+    for p in leaves(T.abstract_train_params(cfg)):
+        n = math.prod(p.shape)
+        plan = _scan_plan((m,) + tuple(p.shape), n, 1 << 24)
+        chunks = 1 if plan is None else plan[1]
+        out += [(n // chunks, p.dtype.itemsize)] * chunks
+    return out
+
+
+def p17_rank(cfg_path: str) -> int:
+    """One rank of a phase-17 world (run as ``chip_smoke.py --p17-rank
+    CONFIG``, with the env a launcher sets): ``launch/train.py`` with each
+    of the config's flag lists in turn, recording after each round the
+    chunk digests of the rank's rows of theta, theta_hat, s and the mirrors,
+    the fault state, the launches, the wire's bytes and seconds and the
+    round's seconds; round ``profile_step`` of each run under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import exchange
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    rec: list = []
+
+    def wrap_step(step, run, state):
+        counts0 = _build.launch_counts()
+        sent0, wire0 = exchange.wire_bytes_sent.count, exchange.wire_bytes_sent.seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof_out = {}
+        if step == cfg.get("profile_step"):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                new, aux = run()
+                torch.cuda.synchronize()
+            host = {}
+            prof_out = _profile_breakdown(prof, time.perf_counter() - t0, host)
+            prof_out.pop("top")
+            prof_out["host_ms"] = host
+        else:
+            new, aux = run()
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v - counts0.get(k, 0) for k, v in _build.launch_counts().items()}
+        fault = new.consensus.fault
+        rec.append({**_round_record(new, aux), "seconds": secs,
+                    "wire_bytes": exchange.wire_bytes_sent.count - sent0,
+                    "wire_seconds": exchange.wire_bytes_sent.seconds - wire0,
+                    "launches": {k: counts.get(k, 0) for k in GOSSIP_KERNELS},
+                    "fault": [x.cpu() for x in fault] if fault != () else None,
+                    "profile": prof_out})
+        return new, aux
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import BACKEND
+
+    # one process group for every run (train.main leaves a group it did not start)
+    dist.init_process_group(BACKEND, init_method="env://")
+    runs = []
+    for argv in cfg["runs"]:
+        rec = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train.main(argv, wrap_step=wrap_step)
+        runs.append({"rec": rec, "seconds": time.perf_counter() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        torch.cuda.empty_cache()
+    torch.save(runs, cfg["out"])
+    dist.destroy_process_group()
+    return 0
+
+
+def p17_world(tag: str, runs: list, ranks: int, profile_step=None) -> list[list[dict]]:
+    """Start ``ranks`` processes on the card that run ``launch/train.py``
+    with each flag list of ``runs`` in turn (``p17_rank``), with the env a
+    launcher sets; a rank that fails fails the world, and a world past
+    P17_TIMEOUT seconds is killed and fails.  Returns per run the ranks'
+    records."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the parent holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved on the card as the ranks start")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    tmp = Path(tempfile.mkdtemp(prefix=f"p17-{tag}-"))
+    procs = []
+    for r in range(ranks):
+        conf = tmp / f"{r}.json"
+        conf.write_text(json.dumps({"runs": runs, "out": str(tmp / f"{r}.pt"),
+                                    "profile_step": profile_step}))
+        # expandable segments: three ranks' 24 GiB each leave no room for the
+        # caching allocator's unused reserved blocks
+        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks), "LOCAL_RANK": str(r),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        logf = open(tmp / f"{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--p17-rank", str(conf)], env=env, stdout=logf,
+                                       stderr=subprocess.STDOUT, cwd=ROOT), logf))
+    deadline = time.perf_counter() + P17_TIMEOUT
+    hung = False
+    for p, _ in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            hung = True
+            break
+    for p, logf in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        logf.close()
+    for r in range(ranks):
+        for line in (tmp / f"{r}.log").read_text().splitlines():
+            if any(k in line for k in ("mesh:", "wire bytes", "peak device", "step ", "Error",
+                                       "error", "Traceback")):
+                log(f"[{tag} r{r}] {line.strip()[:400]}")
+    codes = [p.returncode for p, _ in procs]
+    if hung or any(c != 0 for c in codes):
+        for r in range(ranks):
+            tail = (tmp / f"{r}.log").read_text().splitlines()[-30:]
+            log(f"[{tag} r{r}] last lines:\n" + "\n".join(tail))
+        raise AssertionError(f"phase {tag}: ranks exited {codes}"
+                             + (f", killed after {P17_TIMEOUT} s" if hung else ""))
+    per_rank = [torch.load(tmp / f"{r}.pt", weights_only=False) for r in range(ranks)]
+    return [[w[i] for w in per_rank] for i in range(len(runs))]
+
+
+def p17_reference(key: str, argv: list) -> list[dict]:
+    """The one-process run of ``argv`` (phase 9's or 16a's, when that phase
+    did not run), with per-round records."""
+    import torch
+
+    from repro_torch.launch import train
+
+    recs = []
+
+    def wrap_step(step, run, state):
+        out = run()
+        recs.append({**_round_record(*out),
+                     "fault": ([x.cpu() for x in out[0].consensus.fault]
+                               if out[0].consensus.fault != () else None)})
+        return out
+
+    log(f"[17] one-process reference {key}: launch/train.py {' '.join(argv)}")
+    train.main(argv, wrap_step=wrap_step)
+    torch.cuda.empty_cache()
+    ROUND_RECORDS[key] = recs
+    return recs
+
+
+def _p17_check(tag, ranks, ref, rounds, trees: int, failures: list) -> None:
+    """Every round's chunk digests (the ranks' rows side by side) and losses
+    against the one-process run's; the consensus error within 1e-6."""
+    import torch
+
+    for r in range(rounds):
+        dig = torch.cat([w["rec"][r]["digests"] for w in ranks], dim=1)
+        want = ref[r]["digests"]
+        per = want.shape[0] // trees
+        same = [bool(torch.equal(dig[t * per:(t + 1) * per], want[t * per:(t + 1) * per]))
+                for t in range(trees)]
+        losses = [w["rec"][r]["losses"] for w in ranks]
+        err = [w["rec"][r]["consensus_err"] for w in ranks]
+        rel = abs(err[0] - ref[r]["consensus_err"]) / abs(ref[r]["consensus_err"])
+        log(f"[{tag}] round {r}: chunk digests equal per tree (theta, theta_hat, s"
+            f"{', mirrors' if trees > 3 else ''}) {same}; losses equal "
+            f"{all(x == ref[r]['losses'] for x in losses)}; consensus error {err[0]:.9e} "
+            f"(one process {ref[r]['consensus_err']:.9e}, relative {rel:.2e})")
+        if not all(same):
+            failures.append(f"{tag} round {r}: digests differ {same}")
+        if not all(x == ref[r]["losses"] for x in losses):
+            failures.append(f"{tag} round {r}: losses {losses} != {ref[r]['losses']}")
+        if rel > 1e-6 or len(set(err)) != 1:
+            failures.append(f"{tag} round {r}: consensus error {err} vs {ref[r]['consensus_err']}")
+
+
+def _p17_log_rounds(tag, ranks) -> None:
+    card = gpu_name_and_limit()
+    for r, w in enumerate(ranks):
+        rec = w["rec"]
+        log(f"[{tag}] rank {r}: s per round {[round(x['seconds'], 3) for x in rec]}; wire s "
+            f"per round (staging + gloo) {[round(x['wire_seconds'], 3) for x in rec]}; bytes "
+            f"sent per round {[x['wire_bytes'] for x in rec]}; peak memory "
+            f"{w['peak_gib']:.2f} GiB; launches per round {rec[0]['launches']}; "
+            f"{w['seconds']:.1f} s in train.main ({card})")
+        for x in rec:
+            if x["profile"]:
+                pb = x["profile"]
+                log(f"[{tag}] rank {r} profiled round: wall {pb['wall_ms']:.1f} ms, kernels busy "
+                    f"{pb['busy_ms']:.1f} ms; kernel ms by section "
+                    f"{({k: round(v, 1) for k, v in pb['busy'].items()})}; host ms by section "
+                    f"{({k: round(v, 1) for k, v in pb['host_ms'].items()})}")
+
+
+def multi_process_wire(dev, total) -> dict:
+    """Phase 17: 17a, 4 nodes on 2 ranks, packed then fused, against the
+    one-process runs (phase 9's); 17b, the faulted fused wire, 3 nodes on 3
+    ranks, against 16a's fused rounds 0-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import faults as F
+    from repro_torch.core.faults import receiver_maps
+    from repro_torch.core.topology import compile_permute_plan, make_topology
+    from repro_torch.core.wire import compile_union_wire
+
+    cfg = get_config(QWEN)
+    failures, out = [], {}
+    # ---- 17a
+    m, R, K = 4, 2, 2  # nodes, ranks, non-zero ring shifts
+    block = m // R
+    sizes = _chunk_sizes(cfg, m)
+    n_enc = len(sizes)
+    lam_bytes = K * 4 * m  # one lambda row of m f32 per shift
+    want_bytes = sum(K * _payload_row_bytes(d) for d, _ in sizes) + lam_bytes
+    zero = {k: 0 for k in GOSSIP_KERNELS}
+    expect = {"packed": {**zero, "quantize": block * n_enc, "dequantize": block * (1 + K) * n_enc},
+              "fused": {**zero, "fused_encode": n_enc, "fused_mix": n_enc}}
+    log(f"[17a] predicted wire bytes per rank and round: {want_bytes} ({n_enc} encodes, "
+        f"{K} shifts x one node's payload + {lam_bytes} B of lambda rows)")
+    names = {"packed": [], "fused": ["--fused-gossip"]}
+    refs = {name: ROUND_RECORDS.get(f"9/{name}") or p17_reference(f"9/{name}",
+                                                                   TRAIN_ARGS + extra)
+            for name, extra in names.items()}
+    log(f"[17a] {R} ranks: launch/train.py {' '.join(P17A_ARGS)}, then with --fused-gossip, "
+        f"in the same processes")
+    t0 = time.perf_counter()
+    worlds = p17_world("17a", [P17A_ARGS + extra for extra in names.values()], R,
+                       profile_step=1)
+    log(f"[17a] {time.perf_counter() - t0:.1f} s for the world (packed, then fused)")
+    out["17a/seconds"] = time.perf_counter() - t0
+    for name, ranks in zip(names, worlds):
+        ref = refs[name]
+        _p17_log_rounds(f"17a {name}", ranks)
+        _p17_check(f"17a {name}", ranks, ref, 3, 3, failures)
+        for r, w in enumerate(ranks):
+            for i, x in enumerate(w["rec"]):
+                if x["launches"] != expect[name]:
+                    failures.append(f"17a {name} rank {r} round {i}: launches {x['launches']} "
+                                    f"!= {expect[name]}")
+                if x["wire_bytes"] != want_bytes:
+                    failures.append(f"17a {name} rank {r} round {i}: {x['wire_bytes']} bytes "
+                                    f"!= {want_bytes}")
+            for k, v in w["rec"][0]["launches"].items():
+                total[k] = total.get(k, 0) + v * len(w["rec"])
+        out[f"17a/{name}"] = {"ranks": [
+            {"s_per_round": [x["seconds"] for x in w["rec"]],
+             "wire_s_per_round": [x["wire_seconds"] for x in w["rec"]],
+             "bytes_per_round": [x["wire_bytes"] for x in w["rec"]], "peak_gib": w["peak_gib"]}
+            for w in ranks]}
+    # ---- 17b
+    m = R = 3
+    spec = F.parse_fault_spec(P16_SPEC)
+    union = compile_union_wire((compile_permute_plan(make_topology("ring", m)),))
+    sizes = _chunk_sizes(cfg, m)
+    n_enc = len(sizes)
+    ref = (ROUND_RECORDS.get("16a/fused") or p17_reference(
+        "16a/fused", P17B_ARGS))[:P17B_ROUNDS]
+    argv = P17B_ARGS + ["--gossip-backend", "ppermute"]
+    log(f"[17b] {R} ranks: launch/train.py {' '.join(argv)}")
+    t0 = time.perf_counter()
+    ranks = p17_world("17b", [argv], R)[0]
+    secs = time.perf_counter() - t0
+    _p17_log_rounds("17b", ranks)
+    _p17_check("17b", ranks, ref, P17B_ROUNDS, 3 + union.n_ops, failures)
+    expect = {**{k: 0 for k in GOSSIP_KERNELS}, "fused_encode_digest": n_enc,
+              "dequantize": (1 + union.n_ops) * n_enc}
+    rcv = receiver_maps(union)
+    for i in range(P17B_ROUNDS):
+        fault = [torch.cat([w["rec"][i]["fault"][f] for w in ranks]) for f in range(7)]
+        same = all(torch.equal(_bits(a), _bits(b)) if a.is_floating_point() else torch.equal(a, b)
+                   for a, b in zip(fault, ref[i]["fault"]))
+        log(f"[17b] round {i}: fault state and meter equal the one-process run's: {same}; "
+            f"detected {fault[4].tolist()} resyncs {fault[5].tolist()} meter "
+            f"{fault[6].tolist()}")
+        if not same:
+            failures.append(f"17b round {i}: fault state differs")
+        # the resync requests the round's senders saw: the state before it
+        before = ref[i - 1]["fault"] if i else None
+        want = (np.zeros((union.n_ops, m), bool) if before is None
+                else ((before[1].T > spec.stale) & (before[2].T <= 0)).numpy())
+        for r, w in enumerate(ranks):
+            # alive, degree and resync-request bits (4 B) on each op, for the
+            # model lane and the lambda lane (alive and degree only), then per
+            # encode the payload and its digest on each op and the dense hat
+            # on an op whose receiver asked; lambda's row of m f32 on each op
+            got = w["rec"][i]["wire_bytes"]
+            formula = union.n_ops * (3 * 4 + 2 * 4 + 4 * m)
+            for d, item in sizes:
+                for k in range(union.n_ops):
+                    formula += _payload_row_bytes(d) + 4
+                    if want[k, rcv[k][r]]:
+                        formula += d * item
+            if got != formula:
+                failures.append(f"17b rank {r} round {i}: {got} bytes != formula {formula}")
+            if w["rec"][i]["launches"] != expect:
+                failures.append(f"17b rank {r} round {i}: launches {w['rec'][i]['launches']} "
+                                f"!= {expect}")
+    for w in ranks:
+        for k, v in w["rec"][0]["launches"].items():
+            total[k] = total.get(k, 0) + v * len(w["rec"])
+    out["17b"] = {"seconds": secs, "ranks": [
+        {"s_per_round": [x["seconds"] for x in w["rec"]],
+         "wire_s_per_round": [x["wire_seconds"] for x in w["rec"]],
+         "bytes_per_round": [x["wire_bytes"] for x in w["rec"]], "peak_gib": w["peak_gib"]}
+        for w in ranks]}
+    log(f"[17b] {secs:.1f} s for the world; {out['17b']}")
+    if failures:
+        raise AssertionError(f"phase 17: {failures}")
+    return total
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--turns", metavar="PARENT_ROOT",
                     help="instead of the phases: time the attention and decode rows of the "
                          "checkout at PARENT_ROOT and of this one in turns")
     ap.add_argument("--time-rows", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--p17-rank", metavar="CONFIG", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if args.time_rows:  # one turn of --turns: that tree's package, not this one's
@@ -3531,6 +3952,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     dev = resolve_device("cuda")
+    if args.p17_rank:  # one rank of a phase-17 world, started by the parent
+        return p17_rank(args.p17_rank)
     if args.time_rows:
         print(json.dumps(time_rows(dev)), flush=True)
         return 0
@@ -3608,6 +4031,10 @@ def main(argv=None) -> int:
         faulted = timed(16, lambda: faulted_wire(dev, ft_rows))
         for k in GOSSIP_KERNELS:
             launches[k] = launches.get(k, 0) + faulted.get(k, 0)
+    if 17 in phases:
+        ranks = timed(17, lambda: multi_process_wire(dev, {}))
+        for k in GOSSIP_KERNELS:
+            launches[k] = launches.get(k, 0) + ranks.get(k, 0)
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

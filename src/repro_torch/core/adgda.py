@@ -13,7 +13,10 @@ One step:
 topology or a time-varying schedule with dropout, CHOCO or gradient-tracking
 consensus, microbatches or local steps, and wire faults (``fault_spec``: the
 cached union round with digests and resync; the lambda gossip rides the
-same faulted messages).  The ``ppermute`` backend raises (not yet ported).
+same faulted messages), and the ``ppermute`` backend (``mesh=``: each
+``torch.distributed`` rank trains its block of the nodes, and only
+compressed payloads travel between neighbours; the lambda gossip rides the
+same sends).
 """
 from __future__ import annotations
 
@@ -23,7 +26,6 @@ import numpy as np
 
 from repro_torch.core import dro
 from repro_torch.core.compression import Compressor, make_compressor
-from repro_torch.core.gossip import _not_ported
 from repro_torch.core.topology import (
     Topology,
     TopologySchedule,
@@ -60,7 +62,7 @@ class ADGDAConfig:
     lr_decay: float = 1.0  # eta_t = lr_decay^t * eta_0
     gamma: float | str | None = None  # None -> 0.5*delta; "theory" -> Thm 4.1 value
     momentum: float = 0.0
-    gossip_backend: str = "rolled"  # "ppermute" not yet ported
+    gossip_backend: str = "rolled"  # "rolled" (one process) or "ppermute" (needs a mesh)
     packed_gossip: bool = True
     fused_gossip: bool = False  # the fused CUDA round; needs a kq*b compressor
     robust: bool = True  # False -> CHOCO-SGD (fixed lambda = prior)
@@ -72,17 +74,27 @@ class ADGDAConfig:
     tracker_gamma: float | None = None  # gt only: the tracker lane's step size
     tracker_compressor: str | None = None  # gt only: the tracker lane's compressor
     fault_spec: str | None = None  # wire faults, e.g. "drop:0.05,corrupt:0.01,stale:2"
-    spmd_axis_name: tuple | str | None = None  # no meaning here (one device)
+    spmd_axis_name: tuple | str | None = None  # no meaning here (nodes are rows, not a vmap)
     optimizer: str = "sgd"  # "sgd" (momentum/nesterov) or "adam"
     schedule: str = "exp"  # "const" | "exp" | "cosine"
     warmup: int = 0
     total_steps: int = 1000
     nesterov: bool = False
 
-    def check_ported(self) -> None:
-        """Raise for a setting outside the port: the ``ppermute`` backend."""
-        if self.gossip_backend != "rolled":
-            raise _not_ported(f"gossip_backend={self.gossip_backend!r}")
+    def check_ported(self, mesh=None, node_axes="data") -> None:
+        """Raise for a setting the port cannot run: an unknown backend,
+        ``ppermute`` without a mesh, a mesh of several ranks on the rolled
+        backend, or a node count the mesh's ranks do not divide."""
+        if self.gossip_backend not in ("rolled", "ppermute"):
+            raise ValueError(f"unknown gossip backend {self.gossip_backend!r}; choose rolled "
+                             "or ppermute")
+        if self.gossip_backend == "ppermute" and mesh is None:
+            raise ValueError("backend='ppermute' requires a mesh (see "
+                             "launch.mesh.make_node_mesh)")
+        if mesh is not None:
+            from repro_torch.core.exchange import node_mesh_info
+
+            node_mesh_info(mesh, node_axes, self.num_nodes)
 
     def build(self) -> tuple[Topology | TopologySchedule, Compressor]:
         """(topology-or-schedule, compressor) for the consensus layer: a plain
@@ -118,10 +130,11 @@ def adgda_trainer(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None
                   node_axes="data", device="cuda") -> DecentralizedTrainer:
     """Compose AD-GDA (paper Algorithm 1) as a :class:`DecentralizedTrainer`
     on ``device``.  ``robust=False`` yields CHOCO-SGD (dual frozen at the
-    prior) -- same wire, same oracle."""
-    config.check_ported()
-    if mesh is not None:
-        raise _not_ported("mesh placement")
+    prior) -- same wire, same oracle.  ``mesh`` / ``node_axes`` place the
+    nodes for ``gossip_backend="ppermute"`` (``launch.mesh``): the model
+    consensus and the lambda gossip then run on the ranks, on the mesh's
+    device."""
+    config.check_ported(mesh, node_axes)
     m = config.num_nodes
     topology, compressor = config.build()
     prior = (np.full((m,), 1.0 / m, np.float32) if prior is None
@@ -133,15 +146,17 @@ def adgda_trainer(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None
     if config.tracker_compressor is not None and config.consensus != "gt":
         raise ValueError("tracker_compressor only applies to consensus='gt' (there is no "
                          f"tracker lane under consensus={config.consensus!r})")
+    wire = dict(backend=config.gossip_backend, mesh=mesh, node_axes=node_axes,
+                faults=config.fault_spec)
     if config.consensus == "gt":
         consensus = GradientTrackingConsensus(
             topology, compressor, config.gamma, tracker_gamma=config.tracker_gamma,
             tracker_compressor=config.tracker_compressor, packed=config.packed_gossip,
-            fused=config.fused_gossip, faults=config.fault_spec)
+            fused=config.fused_gossip, **wire)
     elif config.consensus == "choco":
         consensus = ChocoConsensus(topology, compressor, config.gamma,
                                    packed=config.packed_gossip, fused=config.fused_gossip,
-                                   faults=config.fault_spec)
+                                   **wire)
     else:
         raise ValueError(f"unknown consensus {config.consensus!r}; choose choco or gt")
     # the dual's own gossip: a static schedule unwraps to its topology; a
@@ -150,15 +165,16 @@ def adgda_trainer(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None
                      if isinstance(topology, TopologySchedule) and topology.is_static
                      else topology)
     if config.robust:
-        # under faults the lambda gossip rides the consensus's faulted messages
+        # on the ppermute backend, or under faults, the lambda gossip rides
+        # the consensus's own sends (its faulted messages)
+        wire_dual = config.gossip_backend == "ppermute" or consensus.faults is not None
         dual = ProjectedAscent(prior=prior, alpha=config.alpha, eta_lambda=config.eta_lambda,
                                regularizer=dro.make_regularizer(config.regularizer),
                                topology=dual_topology,
-                               mix_fn=consensus.wire_mix if consensus.faults is not None
-                               else None)
+                               mix_fn=consensus.wire_mix if wire_dual else None)
     else:
         dual = FrozenPrior(prior=prior)
     return DecentralizedTrainer(loss_fn, num_nodes=m, local=local, dual=dual,
                                 consensus=consensus, prior=prior,
                                 track_average=config.track_average, config=config,
-                                device=device)
+                                device=device, mesh=mesh)

@@ -8,8 +8,11 @@
   round(participation m) clients by lambda, they run K local SGD steps, the
   server averages them and takes a projected ascent step on lambda.
 
-All three are compositions of :class:`~repro_torch.core.trainer.DecentralizedTrainer`.
-The reference's deprecated ``DRDSGD`` / ``DRFA`` shim classes are not yet
+All three are compositions of :class:`~repro_torch.core.trainer.DecentralizedTrainer`,
+and each takes ``gossip_backend="ppermute"`` with a ``mesh``: DR-DSGD's
+dense models then travel between graph neighbours on the ranks, DRFA's
+server average is one all-reduce of the ranks' partial sums.  The
+reference's deprecated ``DRDSGD`` / ``DRFA`` shim classes are not yet
 ported (see ROADMAP.md); the factories are what they wrap.
 """
 from __future__ import annotations
@@ -19,7 +22,6 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.adgda import ADGDAConfig, LossFn, adgda_trainer
-from repro_torch.core.gossip import _not_ported
 from repro_torch.core.topology import make_topology
 from repro_torch.core.trainer import (
     DecentralizedTrainer,
@@ -53,7 +55,7 @@ class DRDSGDConfig:
     eta_theta: float = 0.1
     lr_decay: float = 1.0
     momentum: float = 0.0
-    gossip_backend: str = "rolled"  # "ppermute" not yet ported
+    gossip_backend: str = "rolled"  # "rolled" or "ppermute" (dense models on the ranks)
     fault_spec: str | None = None  # wire faults: a faulted edge leaves the round's mix
     track_average: bool = True
 
@@ -61,8 +63,6 @@ class DRDSGDConfig:
 def drdsgd_trainer(config: DRDSGDConfig, loss_fn: LossFn, prior=None, *, mesh=None,
                    node_axes="data", device="cuda") -> DecentralizedTrainer:
     """Compose DR-DSGD: closed-form KL dual x exact (uncompressed) gossip."""
-    if mesh is not None:
-        raise _not_ported("mesh placement")
     m = config.num_nodes
     prior = _prior(m, prior)
     sched = make_schedule("exp", config.eta_theta, decay=config.lr_decay)
@@ -71,8 +71,10 @@ def drdsgd_trainer(config: DRDSGDConfig, loss_fn: LossFn, prior=None, *, mesh=No
         local=LocalUpdate(optimizer=sgd(sched, momentum=config.momentum), schedule=sched),
         dual=KLClosedForm(prior=prior, alpha=config.alpha),
         consensus=ExactConsensus(make_topology(config.topology, m),
-                                 backend=config.gossip_backend, faults=config.fault_spec),
-        prior=prior, track_average=config.track_average, config=config, device=device)
+                                 backend=config.gossip_backend, mesh=mesh, node_axes=node_axes,
+                                 faults=config.fault_spec),
+        prior=prior, track_average=config.track_average, config=config, device=device,
+        mesh=mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +86,7 @@ class DRFAConfig:
     eta_lambda: float = 0.1
     lr_decay: float = 1.0
     momentum: float = 0.0
-    gossip_backend: str = "rolled"  # "ppermute" not yet ported
+    gossip_backend: str = "rolled"  # "rolled" or "ppermute" (server sum by all-reduce)
     track_average: bool = True
 
 
@@ -93,8 +95,6 @@ def drfa_trainer(config: DRFAConfig, loss_fn: LossFn, prior=None, *, mesh=None,
     """Compose DRFA: K-local-step oracle x sampled dual ascent x server
     averaging.  ``batch`` leaves are [m, K, ...]: every client runs the K
     steps; only the sampled ones enter the average and the ascent."""
-    if mesh is not None:
-        raise _not_ported("mesh placement")
     m = config.num_nodes
     prior = _prior(m, prior)
     num_sampled = max(1, int(round(config.participation * m)))
@@ -105,5 +105,7 @@ def drfa_trainer(config: DRFAConfig, loss_fn: LossFn, prior=None, *, mesh=None,
                           local_steps=config.local_steps, batch_layout="stacked"),
         dual=SampledAscent(prior=prior, eta_lambda=config.eta_lambda,
                            local_steps=config.local_steps, num_sampled=num_sampled),
-        consensus=FedAvg(num_sampled, backend=config.gossip_backend),
-        prior=prior, track_average=config.track_average, config=config, device=device)
+        consensus=FedAvg(num_sampled, backend=config.gossip_backend, mesh=mesh,
+                         node_axes=node_axes),
+        prior=prior, track_average=config.track_average, config=config, device=device,
+        mesh=mesh)

@@ -43,8 +43,10 @@ A faulted round (``faults=`` a :class:`~repro_torch.core.faults.FaultSpec`
 with the round's ``events``) runs the cached union-wire round of
 ``core/exchange.py`` against the state's NeighborCache (``cache``) and
 fault state (``fault``); both are empty without faults, so every other
-path keeps its state and numerics.  The ``ppermute`` backend is not yet
-ported (see ROADMAP.md).
+path keeps its state and numerics.  ``backend="ppermute"`` with a
+``mesh`` (``launch/mesh.py``) runs the round on ``torch.distributed``
+ranks, each holding a block of the nodes, with only compressed payloads
+between neighbours (``core/exchange.py``).
 """
 from __future__ import annotations
 
@@ -89,10 +91,6 @@ class CHOCOState:
     cache: Any = ()
     # the per-edge fault state (core.faults.FaultState) under a fault spec; ()
     fault: Any = ()
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch; see ROADMAP.md")
 
 
 def choco_init(theta_stacked, *, cache_ops: int = 0, fault_ops: int | None = None) -> CHOCOState:
@@ -269,11 +267,14 @@ def _round_leaves(leaves, hat_leaves, s_leaves, draw, round_one, block_scan_elem
 
 
 def noise_draw(compressor: Compressor, leaves, generator: torch.Generator | None,
-               noise: Noise | None):
+               noise: Noise | None, nodes: tuple[int, int] | None = None):
     """``draw(leaf_index, chunk_index, inner_shape)``: the uniform noise of
     one encode of the stacked ``leaves``, from ``noise`` if given, else from
-    ``generator`` (None for a compressor that takes none)."""
-    m = leaves[0].shape[0]
+    ``generator`` (None for a compressor that takes none).  ``nodes = (lo,
+    m)``: the leaves are rows ``[lo, lo + block)`` of an ``m``-node axis;
+    the noise of all ``m`` nodes is drawn and those rows kept."""
+    block = leaves[0].shape[0]
+    lo, m = (0, block) if nodes is None else nodes
 
     def draw(li, ci, inner_shape):
         shape = compressor.noise_shape(m, inner_shape)
@@ -284,11 +285,13 @@ def noise_draw(compressor: Compressor, leaves, generator: torch.Generator | None
             if tuple(xi.shape) != tuple(shape):
                 raise ValueError(f"noise for leaf {li} chunk {ci}: want {shape}, "
                                  f"got {tuple(xi.shape)}")
-            return xi.to(device=leaves[li].device, dtype=torch.float32)
-        if generator is None:
+            xi = xi.to(device=leaves[li].device, dtype=torch.float32)
+        elif generator is None:
             raise ValueError(f"{type(compressor).__name__} needs a generator or noise=")
-        return torch.rand(shape, generator=generator, device=leaves[li].device,
-                          dtype=torch.float32)
+        else:
+            xi = torch.rand(shape, generator=generator, device=leaves[li].device,
+                            dtype=torch.float32)
+        return xi if block == m else xi[lo:lo + block].clone()  # drop the other rows
 
     return draw
 
@@ -308,7 +311,7 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
                 noise: Noise | None = None, packed: bool = True, fused: bool = False,
                 block_scan_elems: int = BLOCK_SCAN_ELEMS, mixing=None, mask=None,
                 backend: str = "rolled", schedule=None, step: int | None = None, union=None,
-                faults=None, events=None):
+                faults=None, events=None, mesh=None, node_axes="data"):
     """One compressed-consensus round over all leaves of a stacked tree.
 
     Returns (theta_new, state_new): the input trees, updated in place.
@@ -317,9 +320,20 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
     (``core/exchange.py``) over ``union`` (or the union wire of ``schedule``
     or ``topology``) at round ``step``, with the round's ``events``; a
     ``fused`` faulted round encodes on the fused kernel with its digest.
+    ``backend="ppermute"`` runs the round on ``mesh``'s ranks (the trees
+    hold the rank's rows; ``schedule`` / ``step`` / ``mask`` replace the
+    dense ``mixing``).
     """
-    if backend != "rolled":
-        raise _not_ported(f"gossip backend {backend!r}")
+    if backend == "ppermute":
+        from repro_torch.core.exchange import choco_round_ppermute
+
+        _check_native(mixing)
+        return choco_round_ppermute(
+            theta_half, state, topology, gamma, compressor, mesh=mesh, node_axes=node_axes,
+            generator=generator, noise=noise, packed=packed, fused=fused,
+            block_scan_elems=block_scan_elems, schedule=schedule, step=step, mask=mask,
+            union=union, faults=faults, events=events)
+    _check_backend(backend)
     if faults is not None:
         from repro_torch.core.exchange import choco_round_cached_local
 
@@ -368,6 +382,17 @@ def choco_round(theta_half, state: CHOCOState, topology: Topology, gamma: float,
     return theta_half, state
 
 
+def _check_backend(backend: str) -> None:
+    if backend not in ("rolled", "ppermute"):
+        raise ValueError(f"unknown gossip backend {backend!r}; choose rolled or ppermute")
+
+
+def _check_native(mixing) -> None:
+    if mixing is not None:
+        raise ValueError("backend='ppermute' takes step/mask, not a dense mixing matrix -- the "
+                         "wire program is compiled from the schedule")
+
+
 class LaneRound(NamedTuple):
     """One lane of a multi-lane round: the variable to gossip, its CHOCO
     trackers, and the lane's step size and compressor.  Lane 0 is the
@@ -383,7 +408,7 @@ def choco_round_lanes(lanes, topology: Topology, generator: torch.Generator | No
                       noises=None, packed: bool = True, fused: bool = False,
                       block_scan_elems: int = BLOCK_SCAN_ELEMS, mixing=None, mask=None,
                       backend: str = "rolled", schedule=None, step: int | None = None,
-                      union=None, faults=None, events=None):
+                      union=None, faults=None, events=None, mesh=None, node_axes="data"):
     """One multi-lane round on the rolled wire: each :class:`LaneRound`
     runs :func:`choco_round` over the same topology / W(t) / mask.  The
     reference folds lane k > 0's key out of the round key; here every lane
@@ -391,15 +416,24 @@ def choco_round_lanes(lanes, topology: Topology, generator: torch.Generator | No
     the single-lane wire), and ``noises[k]`` injects lane k's noise instead.
     Returns ``(thetas, states)``, one entry per lane (updated in place, as
     :func:`choco_round`).  Under ``faults`` the lanes run the cached round,
-    each with its own mirrors, fault state and ``events[k]``."""
+    each with its own mirrors, fault state and ``events[k]``.
+    ``backend="ppermute"`` runs the lanes on ``mesh``'s ranks, every edge
+    carrying one message per lane."""
     lanes = tuple(LaneRound(*lane) for lane in lanes)
     if not lanes:
         raise ValueError("choco_round_lanes needs at least one lane")
+    if backend == "ppermute":
+        from repro_torch.core.exchange import choco_round_ppermute_lanes
+
+        _check_native(mixing)
+        return choco_round_ppermute_lanes(
+            lanes, topology, generator, mesh=mesh, node_axes=node_axes, noises=noises,
+            packed=packed, fused=fused, block_scan_elems=block_scan_elems, schedule=schedule,
+            step=step, mask=mask, union=union, faults=faults, events=events)
+    _check_backend(backend)
     if faults is not None:
         from repro_torch.core.exchange import choco_round_cached_local_lanes
 
-        if backend != "rolled":
-            raise _not_ported(f"gossip backend {backend!r}")
         return choco_round_cached_local_lanes(
             lanes, generator=generator, noises=noises, union=union,
             fused=fused, block_scan_elems=block_scan_elems, schedule=schedule,

@@ -455,9 +455,9 @@ def make_topology_schedule(spec: str, m: int, *, dropout: float = 0.0, period: i
 
 # ======================================================== permute schedules
 # Compilation of a mixing matrix into an explicit *neighbor-exchange*
-# schedule: the wire program the cached union round (core/exchange.py)
-# executes -- one roll or gather of the node axis per op in one process
-# (permutes across processes are not yet ported) -- instead of a dense mix.
+# schedule: the wire program core/exchange.py executes -- one roll or
+# gather of the node axis per op in one process, or point-to-point sends
+# between torch.distributed ranks -- instead of a dense mix.
 #
 # Two forms, matching the two graph families:
 #

@@ -45,7 +45,14 @@ events (the last three on the CPU) -- each drawn in a fixed order and saved
 in checkpoints.  The reference splits one JAX key per round instead, so the
 tests inject its draws: ``step(..., noise=, mask=, sampled=, fault_u=)``.
 
-The ``ppermute`` backend is not yet ported (see ROADMAP.md).
+The ``ppermute`` backend (``backend="ppermute"`` with a ``mesh`` on the
+consensus and ``DecentralizedTrainer(mesh=)``) puts each rank's block of
+nodes in its own process: the trainer keeps the rank's ``[block, ...]`` rows
+of theta, the optimizer moments, the consensus state and lambda, draws every
+``[m]``-sized random value whole on every rank (the mask, the dual's
+sample, the fault events, the gossip noise), and all-gathers the losses;
+the network mean and lambda's mean take an all-reduce, the consensus error
+an all-gather of each column block.
 """
 from __future__ import annotations
 
@@ -63,7 +70,6 @@ from repro_torch.core.gossip import (
     BLOCK_SCAN_ELEMS,
     CHOCOState,
     LaneRound,
-    _not_ported,
     _scan_plan,
     check_fused,
     choco_init,
@@ -248,14 +254,20 @@ class DualUpdate:
     def begin(self, lam: torch.Tensor, generator: torch.Generator | None, inject=None):
         return None
 
-    def grad_weights(self, lam: torch.Tensor, losses: torch.Tensor) -> torch.Tensor:
-        return torch.ones_like(losses)
+    def grad_weights(self, lam: torch.Tensor, losses: torch.Tensor,
+                     rows: slice | None = None) -> torch.Tensor:
+        """The per-node gradient weights from every node's ``losses`` [m]:
+        all of them, or the nodes ``rows`` (a rank's block; its rows of a
+        per-node lambda)."""
+        return torch.ones_like(losses if rows is None else losses[rows])
 
     def update(self, lam: torch.Tensor, losses: torch.Tensor, ctx=None, *, mixing=None,
-               mask=None, step=None, events=None) -> torch.Tensor:
-        """Advance lambda; a time-varying round passes its dense W(t) and
-        participation mask, a faulted one its round index and the model
-        lane's fault events (duals that do not gossip ignore them)."""
+               mask=None, step=None, events=None, rows: slice | None = None) -> torch.Tensor:
+        """Advance lambda from every node's ``losses``; a time-varying round
+        passes its dense W(t) and participation mask, a faulted one its
+        round index and the model lane's fault events (duals that do not
+        gossip ignore them).  ``rows``: a per-node lambda holds those nodes'
+        rows only."""
         raise NotImplementedError
 
     def bits_per_round(self) -> float:
@@ -288,18 +300,22 @@ class ProjectedAscent(DualUpdate):
     def init(self, m, device):
         return _prior_on(self.prior, device)[None].expand(m, m).clone()
 
-    def grad_weights(self, lam, losses):
-        return (torch.diagonal(lam) / _prior_on(self.prior, lam.device)).float()
-
-    def update(self, lam, losses, ctx=None, *, mixing=None, mask=None, step=None, events=None):
-        m = lam.shape[0]
+    def grad_weights(self, lam, losses, rows=None):
+        lo = 0 if rows is None else rows.start
         prior = _prior_on(self.prior, lam.device)
-        node_ids = torch.arange(m, device=lam.device)
-        dual_grads = dro.dual_gradient(losses, node_ids, lam, prior, self.alpha,
+        return (torch.diagonal(lam, offset=lo)
+                / (prior if rows is None else prior[rows])).float()
+
+    def update(self, lam, losses, ctx=None, *, mixing=None, mask=None, step=None, events=None,
+               rows=None):
+        rows = slice(0, lam.shape[0]) if rows is None else rows
+        prior = _prior_on(self.prior, lam.device)
+        node_ids = torch.arange(rows.start, rows.stop, device=lam.device)
+        dual_grads = dro.dual_gradient(losses[rows], node_ids, lam, prior, self.alpha,
                                        self.regularizer)
         lam_half = dro.project_simplex(lam + self.eta_lambda * dual_grads)
         if mask is not None:
-            lam_half = torch.where((mask > 0).reshape(m, 1), lam_half, lam)
+            lam_half = torch.where((mask[rows] > 0).reshape(-1, 1), lam_half, lam)
         if mixing is not None:
             return mix_stacked_with(lam_half, mixing)
         if self.mix_fn is not None:
@@ -335,9 +351,10 @@ class KLClosedForm(DualUpdate):
     def init(self, m, device):
         return _prior_on(self.prior, device)
 
-    def grad_weights(self, lam, losses):
+    def grad_weights(self, lam, losses, rows=None):
         prior = _prior_on(self.prior, losses.device)
-        return (dro.kl_closed_form_weights(losses, prior, self.alpha) / prior).float()
+        w = (dro.kl_closed_form_weights(losses, prior, self.alpha) / prior).float()
+        return w if rows is None else w[rows]
 
     def update(self, lam, losses, ctx=None, **_):
         return dro.kl_closed_form_weights(losses, _prior_on(self.prior, losses.device),
@@ -415,18 +432,21 @@ class Consensus:
         return float(np.float32(self.bits_per_round(theta_template, mode="max")))
 
 
-def _check_wire(backend: str) -> None:
+def _resolve_wire_backend(backend: str, mesh, schedule, topology=None,
+                          faults=None) -> UnionWirePlan | None:
+    """Check the ``backend`` knob (``ppermute`` needs a mesh; a mesh of
+    several ranks needs ``ppermute``) and compile the union wire when the
+    round runs the cached union round: a time-varying ppermute wire, or any
+    faulted wire (one plan per consensus: it sizes the mirrors and the
+    fault state, picks the round's weights and bills the bits)."""
     if backend not in ("rolled", "ppermute"):
         raise ValueError(f"unknown gossip backend {backend!r}; choose rolled or ppermute")
-    if backend != "rolled":
-        raise _not_ported(f"gossip backend {backend!r}")
-
-
-def _resolve_union(schedule, topology, faults) -> UnionWirePlan | None:
-    """The union wire of a faulted consensus (one plan per consensus: it
-    sizes the mirrors and the fault state, picks the round's weights and
-    bills the bits); None without faults -- the rolled round has no union."""
-    if faults is None:
+    if backend == "ppermute" and mesh is None:
+        raise ValueError("backend='ppermute' requires a mesh (see launch.mesh.make_node_mesh)")
+    if backend == "rolled" and mesh is not None and mesh.size > 1:
+        raise ValueError(f"a mesh of {mesh.size} ranks holds a block of the nodes per rank: "
+                         "it needs backend='ppermute'")
+    if not ((backend == "ppermute" and schedule is not None) or faults is not None):
         return None
     from repro_torch.core.exchange import resolve_union
 
@@ -462,8 +482,14 @@ def _fault_bits_meter(cons_state):
     return bits
 
 
-def _meter_max(meter) -> float:
-    return float(np.float32(meter.max().item()))
+def _meter_max(meter, mesh=None) -> float:
+    """The busiest node's meter reading (over every rank's block)."""
+    top = meter.max().reshape(1).float().cpu()
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.group)
+    return float(np.float32(top.item()))
 
 
 def _split_schedule(topology):
@@ -488,14 +514,18 @@ class ChocoConsensus(Consensus):
     reference silently falls back).  ``faults`` (a spec or its string) runs
     every round on the cached union wire, with mirrors and fault state in
     the consensus state; ``fused=True`` then encodes on the fused kernel's
-    digest variant (static circulant wire only, as without faults)."""
+    digest variant (static circulant wire only, as without faults).
+    ``backend="ppermute"`` runs the round on ``mesh``'s ranks (the state
+    holds the rank's rows); a time-varying ppermute wire runs the cached
+    union round against the NeighborCache."""
 
     def __init__(self, topology: Topology | TopologySchedule, compressor: Compressor,
                  gamma: float | str | None = None, *, packed: bool = True,
-                 fused: bool = False, backend: str = "rolled", faults=None):
-        _check_wire(backend)
+                 fused: bool = False, backend: str = "rolled", mesh=None, node_axes="data",
+                 faults=None):
         self.topology, self.schedule, self._gamma_topology = _split_schedule(topology)
         self.faults = parse_fault_spec(faults)
+        self.backend, self.mesh, self.node_axes = backend, mesh, node_axes
         if fused and self.schedule is not None:
             path = ("the faulted round, whose fused encode has no participation mask"
                     if self.faults is not None else "the masked path, which has no fused form")
@@ -509,7 +539,8 @@ class ChocoConsensus(Consensus):
         self.gamma_spec = gamma
         self.packed = packed
         self.fused = fused
-        self.union = _resolve_union(self.schedule, self.topology, self.faults)
+        self.union = _resolve_wire_backend(backend, mesh, self.schedule, self.topology,
+                                           self.faults)
         # provisional gamma until init()/mix() see the real leaf sizes
         self.gamma = self._resolve_gamma(4096)
 
@@ -546,19 +577,29 @@ class ChocoConsensus(Consensus):
         self.gamma = self._resolve_gamma(self._encode_dim(theta_stacked))
         return self._choco_init(theta_stacked)
 
+    @property
+    def native(self) -> bool:
+        """The round takes step / mask / the union wire, never a dense W(t):
+        the ppermute backend, or a faulted wire."""
+        return self.backend == "ppermute" or self.faults is not None
+
     def _round_mixing(self, step, mask, mixing):
-        if self.faults is not None:
+        if self.native:
             return None  # the union wire's banks give the round's weights
         if self.schedule is not None and mixing is None:
             return self.schedule.mixing_at(0 if step is None else step, mask)
         return mixing
 
     def _wire_kw(self, step, events) -> dict:
-        """The faulted round's wire arguments (none without faults)."""
-        if self.faults is None:
-            return {}
-        return dict(schedule=self.schedule, step=0 if step is None else step, union=self.union,
-                    faults=self.faults, events=events)
+        """The wire arguments of a ppermute or faulted round (none for the
+        rolled fault-free round)."""
+        kw = {}
+        if self.backend == "ppermute":
+            kw = dict(backend="ppermute", mesh=self.mesh, node_axes=self.node_axes)
+        if self.native:
+            kw.update(schedule=self.schedule, step=0 if step is None else step,
+                      union=self.union, faults=self.faults, events=events)
+        return kw
 
     def mix(self, theta_half, state, generator, ctx=None, *, step=None, mask=None, mixing=None,
             noise=None, theta_prev=None, events=None):
@@ -570,9 +611,18 @@ class ChocoConsensus(Consensus):
 
     def wire_mix(self, tree, *, step=None, mask=None, events=None):
         """Uncompressed gossip of a stacked tree over this consensus's wire:
-        under faults the lambda gossip rides the model lane's messages (the
-        same events) on the memoryless faulted mix; its bits stay billed at
-        the dual's constant."""
+        on the ppermute backend the lambda gossip rides the model's sends
+        (the union wire's weights on a time-varying wire); under faults it
+        rides the model lane's messages (the same events) on the memoryless
+        faulted mix; its bits stay billed at the dual's constant."""
+        if self.backend == "ppermute":
+            from repro_torch.core.exchange import mix_stacked_ppermute
+
+            out = mix_stacked_ppermute(tree, self.topology, mesh=self.mesh,
+                                       node_axes=self.node_axes, schedule=self.schedule,
+                                       step=step, mask=mask, union=self.union,
+                                       faults=self.faults, events=events)
+            return out[0] if self.faults is not None else out
         if self.faults is None:
             return mix_stacked(tree, self.topology)
         from repro_torch.core.exchange import mix_stacked_faulted_local
@@ -608,7 +658,7 @@ class ChocoConsensus(Consensus):
         if self.faults is not None:
             meter = _fault_bits_meter(consensus_state)
             if meter is not None:  # the exchange's delivered bits
-                return _meter_max(meter)
+                return _meter_max(meter, self.mesh)
         total = payload_total_bits(self.compressor, theta_template)
         if self.union is not None:
             return _realized_bits(total, self.union.realized_out_degree_traced(mask))
@@ -738,7 +788,10 @@ class GradientTrackingConsensus(ChocoConsensus):
         d = self._encode_dim(theta_half)
         gamma = self._resolve_gamma(d)
         tgamma = self._resolve_tracker_gamma(gamma, d)
-        _gt_update_(theta_half, theta_prev, state.y, state.d_prev, mask)
+        alive = mask
+        if mask is not None and self.mesh is not None:
+            alive = mask[self.mesh.rows(self.mesh.size * tree_leaves(theta_half)[0].shape[0])]
+        _gt_update_(theta_half, theta_prev, state.y, state.d_prev, alive)
         (x_new, y_new), (model_new, tracker_new) = choco_round_lanes(
             (LaneRound(theta_half, state.model, gamma, self.compressor),
              LaneRound(state.y, state.tracker, tgamma, self._tracker_comp)),
@@ -785,7 +838,7 @@ class GradientTrackingConsensus(ChocoConsensus):
         if self.faults is not None:
             meter = _fault_bits_meter(consensus_state)
             if meter is not None:  # both lanes' delivered bits
-                return _meter_max(meter)
+                return _meter_max(meter, self.mesh)
         one = super().bits_realized(theta_template, step, mask)
         scale = 2.0
         if self.tracker_compressor is not None:
@@ -799,14 +852,18 @@ class ExactConsensus(Consensus):
     """Uncompressed gossip: theta_i <- sum_j w_ij theta_j (DR-DSGD's wire),
     on a topology or a schedule (W(t), dropped nodes hold their model).
     Under ``faults`` the wire is memoryless: a faulted message leaves the
-    round's mix, and the state is the delivered-bits meter (WireBits)."""
+    round's mix, and the state is the delivered-bits meter (WireBits).
+    ``backend="ppermute"`` sends the dense models between graph neighbours
+    on ``mesh``'s ranks (a schedule's weights from the union wire, only its
+    phase's active edges when fault-free)."""
 
     def __init__(self, topology: Topology | TopologySchedule, *, backend: str = "rolled",
-                 faults=None):
-        _check_wire(backend)
+                 mesh=None, node_axes="data", faults=None):
         self.topology, self.schedule, _ = _split_schedule(topology)
         self.faults = parse_fault_spec(faults)
-        self.union = _resolve_union(self.schedule, self.topology, self.faults)
+        self.backend, self.mesh, self.node_axes = backend, mesh, node_axes
+        self.union = _resolve_wire_backend(backend, mesh, self.schedule, self.topology,
+                                           self.faults)
 
     def init(self, theta_stacked):
         if self.faults is None:
@@ -817,6 +874,19 @@ class ExactConsensus(Consensus):
 
     def mix(self, theta_half, state, generator, ctx=None, *, step=None, mask=None, mixing=None,
             noise=None, theta_prev=None, events=None):
+        if self.backend == "ppermute":
+            from repro_torch.core.exchange import mix_stacked_ppermute
+
+            if mixing is not None:
+                raise ValueError("backend='ppermute' takes step/mask, not a dense mixing matrix "
+                                 "-- the wire program is compiled from the schedule")
+            out = mix_stacked_ppermute(theta_half, self.topology, mesh=self.mesh,
+                                       node_axes=self.node_axes, schedule=self.schedule,
+                                       step=step, mask=mask, union=self.union,
+                                       faults=self.faults, events=events)
+            if self.faults is not None:
+                return out[0], WireBits(bits=out[1].to(state.bits.device))
+            return out, state
         if self.faults is not None:
             from repro_torch.core.exchange import mix_stacked_faulted_local
 
@@ -842,7 +912,7 @@ class ExactConsensus(Consensus):
         if self.faults is not None:
             meter = _fault_bits_meter(consensus_state)
             if meter is not None:
-                return _meter_max(meter)
+                return _meter_max(meter, self.mesh)
         total = payload_total_bits(Identity(), theta_template)
         if self.union is not None:
             return _realized_bits(total, self.union.realized_out_degree_traced(mask))
@@ -854,18 +924,28 @@ class FedAvg(Consensus):
     """Federated server averaging over the sampled clients (DRFA's wire):
     stacked local models in, the single server model out (the trainer
     broadcasts it next round).  With no sampling ``ctx`` every client is
-    averaged."""
+    averaged.  ``backend="ppermute"``: each rank sums its block's sampled
+    models and one all-reduce aggregates them (the reference's ``psum``)."""
 
     federated = True
 
-    def __init__(self, num_sampled: int, *, backend: str = "rolled"):
-        _check_wire(backend)
+    def __init__(self, num_sampled: int, *, backend: str = "rolled", mesh=None,
+                 node_axes="data"):
+        _resolve_wire_backend(backend, mesh, None)
         self.num_sampled = num_sampled
+        self.backend, self.mesh, self.node_axes = backend, mesh, node_axes
 
     def mix(self, theta_locals, state, generator, ctx=None, *, step=None, mask=None,
             mixing=None, noise=None, theta_prev=None, events=None):
         m = tree_leaves(theta_locals)[0].shape[0]
         sampled = ctx
+        if self.backend == "ppermute":
+            from repro_torch.core.exchange import server_average_ppermute
+
+            if sampled is None:
+                sampled = torch.ones(m * self.mesh.size, dtype=torch.float32)
+            return server_average_ppermute(theta_locals, sampled, mesh=self.mesh,
+                                           node_axes=self.node_axes), state
         if sampled is None:
             sampled = torch.ones(m, dtype=torch.float32,
                                  device=tree_leaves(theta_locals)[0].device)
@@ -899,12 +979,24 @@ class DecentralizedTrainer:
     ``batch`` leaves are stacked [m, per-node-batch, ...] on the trainer's
     device; ``loss_fn(params, batch, rng)`` is one node's loss (``rng`` is
     None: the losses here draw no randomness).
+
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.NodeMesh` of R ranks,
+    the consensus on ``backend="ppermute"``) each rank runs this trainer on
+    its block of ``num_nodes / R`` nodes: ``batch`` holds the rank's rows,
+    the state its rows of theta, the moments, the consensus state and a
+    per-node lambda, on the rank's device; the aux metrics are the whole
+    network's, equal on every rank.
     """
 
     def __init__(self, loss_fn: LossFn, *, num_nodes: int, local: LocalUpdate,
                  dual: DualUpdate, consensus: Consensus, prior=None,
-                 track_average: bool = True, config: Any = None, device="cuda"):
-        self.device = resolve_device(device)
+                 track_average: bool = True, config: Any = None, device="cuda", mesh=None):
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.mesh = mesh
+        self.rows = slice(0, num_nodes) if mesh is None else mesh.rows(num_nodes)
+        if mesh is not None and mesh.size > 1 and getattr(consensus, "backend", None) != "ppermute":
+            raise ValueError("a mesh of several ranks needs a consensus on backend='ppermute' "
+                             "(each rank holds a block of the nodes)")
         self.loss_fn = loss_fn
         self.num_nodes = num_nodes
         self.local = local
@@ -933,24 +1025,49 @@ class DecentralizedTrainer:
     def gamma(self) -> float | None:
         return getattr(self.consensus, "gamma", None)
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the nodes are spread over several ranks."""
+        return self.mesh is not None and self.mesh.size > 1
+
     def _stacked(self, params):
-        m = self.num_nodes
+        m = self.rows.stop - self.rows.start  # this rank's block
         return tree_map(
             lambda p: p.to(self.device)[None].expand((m,) + tuple(p.shape)).clone(), params)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a per-node [block] value, as [m]."""
+        if not self.sharded:
+            return x
+        from repro_torch.core.exchange import all_gather_rows
+
+        return all_gather_rows(x, self.mesh)
+
+    def _node_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over all nodes of an f32 [block, ...] tensor."""
+        if not self.sharded:
+            return x.mean(0)
+        from repro_torch.core.exchange import all_reduce_sum
+
+        return all_reduce_sum(x.sum(0), self.mesh) / self.num_nodes
 
     # ------------------------------------------------------------------ init
     def init(self, params: Any, seed: int = 0) -> TrainerState:
         """Stack ``params`` (one model, any device) to every node on the
         trainer's device (federated: keep one server copy).  The generators
         are seeded from ``seed``: gossip ``seed``, dual ``seed + 2**32``,
-        mask ``seed + 2**33``, fault ``seed + 3 * 2**32``."""
+        mask ``seed + 2**33``, fault ``seed + 3 * 2**32`` (on every rank the
+        same: each draws the whole network's values and keeps its rows)."""
         stacked = self._stacked(params)
         theta0 = (tree_map(lambda p: p.to(self.device, copy=True), params) if self.federated
                   else stacked)
+        lam = self.dual.init(self.num_nodes, self.device)
+        if lam.ndim == 2 and self.sharded:  # a per-node lambda: this rank's rows
+            lam = lam[self.rows].clone()
         return TrainerState(
             step=0,
             theta=theta0,
-            lam=self.dual.init(self.num_nodes, self.device),
+            lam=lam,
             opt=self.local.init(stacked),
             consensus=self.consensus.init(stacked),
             theta_avg=(tree_map(lambda p: p.to(self.device, torch.float32, copy=True), params)
@@ -999,9 +1116,10 @@ class DecentralizedTrainer:
         # the lambda gossip rides the model lane's faulted messages
         events = self._fault_events(state, fault_u) if faulted else None
         dual_events = events if isinstance(events, FaultEvents) or events is None else events[0]
-        # a faulted round mixes over the union wire's banks, never a dense W(t)
+        # a faulted or ppermute round mixes over the union wire's banks, never a dense W(t)
+        native = faulted or getattr(self.consensus, "backend", "rolled") == "ppermute"
         mixing = (schedule.mixing_at(state.step, mask).to(self.device)
-                  if schedule is not None and not faulted else None)
+                  if schedule is not None and not native else None)
         mask_dev = None if mask is None else mask.to(self.device)
         ctx = self.dual.begin(state.lam, state.dual_generator, inject=sampled)
 
@@ -1009,15 +1127,18 @@ class DecentralizedTrainer:
         flat = tree_leaves(theta)
         theta_prev = (tree_map(lambda x: x.clone(), theta)
                       if self.consensus.needs_theta_prev else None)
-        dropped = _rows(mask) if mask is not None else []
+        node_rows = self.rows if self.sharded else None
+        dropped = _rows(mask[self.rows]) if mask is not None else []
         if dropped:  # the dropped rows only: theta and the per-node moments
             rows = torch.tensor(dropped, device=self.device)
             moments = [x for part in (state.opt.mu, state.opt.nu) for x in part]
             saved = [x.index_select(0, rows) for x in flat + moments]
 
         eta = self.local.lr(state.opt)
-        weights_fn = lambda losses: self.dual.grad_weights(state.lam, losses)
+        weights_fn = lambda losses: self.dual.grad_weights(state.lam, self._gather(losses),
+                                                            node_rows)
         opt_new, losses = self.local.step(self.loss_fn, theta, state.opt, batch, weights_fn)
+        losses = self._gather(losses)
         if dropped:  # a node that sat the round out resumes where it left off
             moments = [x for part in (opt_new.mu, opt_new.nu) for x in part]
             for x, old in zip(flat + moments, saved):
@@ -1025,7 +1146,7 @@ class DecentralizedTrainer:
             del saved
         with record_function("dual"):
             lam_new = self.dual.update(state.lam, losses, ctx, mixing=mixing, mask=mask_dev,
-                                       step=state.step, events=dual_events)
+                                       step=state.step, events=dual_events, rows=node_rows)
         with record_function("consensus"):
             theta_new, cons_new = self.consensus.mix(
                 theta, state.consensus, state.generator, ctx, step=state.step, mask=mask_dev,
@@ -1034,7 +1155,8 @@ class DecentralizedTrainer:
 
         theta_avg = state.theta_avg
         if self.track_average:
-            mean = (lambda th: th.float()) if self.federated else (lambda th: th.float().mean(0))
+            mean = ((lambda th: th.float()) if self.federated
+                    else (lambda th: self._node_mean(th.float())))
 
             def running(avg, th):
                 tt = float(state.step)
@@ -1046,12 +1168,12 @@ class DecentralizedTrainer:
             "losses": losses,
             "worst_loss": losses.max(),
             "mean_loss": losses.mean(),
-            "lambda_mean": lam_new.mean(0) if lam_new.ndim == 2 else lam_new,
+            "lambda_mean": self._node_mean(lam_new) if lam_new.ndim == 2 else lam_new,
             "eta_theta": eta,
         }
         if not self.federated:
             with record_function("consensus_err"):
-                aux["consensus_err"] = _consensus_error(theta_new)
+                aux["consensus_err"] = _consensus_error(theta_new, self.mesh)
         if mask is not None:
             aux["participation"] = mask
         aux["bits_realized"] = float(
@@ -1067,7 +1189,7 @@ class DecentralizedTrainer:
     def network_mean(self, state: TrainerState):
         if self.federated:
             return tree_map(lambda x: x.float(), state.theta)
-        return tree_map(lambda x: x.float().mean(0), state.theta)
+        return tree_map(lambda x: self._node_mean(x.float()), state.theta)
 
     def bits_per_round(self, state: TrainerState, per_iteration: bool = False, *,
                        mode: str = "max", step=None, mask=None) -> float:
@@ -1080,7 +1202,7 @@ class DecentralizedTrainer:
                  if mode == "realized" and getattr(self.consensus, "faults", None) is not None
                  else None)
         if meter is not None:
-            bits = float(meter.max()) + self.dual.bits_per_round()
+            bits = _meter_max(meter, self.mesh) + self.dual.bits_per_round()
         else:
             bits = (self.consensus.bits_per_round(state.theta, mode=mode, step=step, mask=mask)
                     + self.dual.bits_per_round())
@@ -1089,15 +1211,52 @@ class DecentralizedTrainer:
         return bits
 
 
-def _consensus_error(theta_stacked, chunk_elems: int = 1 << 22) -> torch.Tensor:
+def _consensus_error(theta_stacked, mesh=None, chunk_elems: int = 1 << 22,
+                     batch: int = 8) -> torch.Tensor:
     """Xi_theta = sum_i ||theta_i - theta_bar||^2 over all leaves (f32), taken
     over column blocks of ``chunk_elems`` per node so no f32 copy of a whole
-    leaf is made."""
-    err = None
+    leaf is made.
+
+    On a mesh of several ranks column block k belongs to rank k mod R: the
+    other ranks send it their rows (``batch`` blocks an exchange), its owner
+    computes the block's term over all m rows, and one all-reduce of the
+    per-block terms lets every rank add them in the one-process order -- the
+    one-process value, bit for bit, for a (R - 1) / R share of each rank's
+    rows on the wire."""
+    blocks = []
     for leaf in tree_leaves(theta_stacked):
         flat = leaf.reshape(leaf.shape[0], -1)
-        for lo in range(0, flat.shape[1], chunk_elems):
-            x = flat[:, lo:lo + chunk_elems].float()
-            part = torch.sum((x - x.mean(0, keepdim=True)) ** 2)
-            err = part if err is None else err + part
+        blocks += [flat[:, lo:lo + chunk_elems] for lo in range(0, flat.shape[1], chunk_elems)]
+
+    def term(x):
+        x = x.float()
+        return torch.sum((x - x.mean(0, keepdim=True)) ** 2)
+
+    if mesh is None or mesh.size == 1:
+        parts = [term(x) for x in blocks]
+    else:
+        from repro_torch.core.exchange import Recv, all_reduce_sum, exchange
+
+        R, r = mesh.size, mesh.rank
+        terms = torch.zeros(len(blocks), dtype=torch.float32, device=blocks[0].device)
+        for lo in range(0, len(blocks), batch):
+            ks = range(lo, min(lo + batch, len(blocks)))
+            entries = []  # per block and rank offset d: my rows to its owner
+            for k in ks:
+                x = blocks[k]
+                for d in range(1, R):
+                    entries.append((x.contiguous() if (r + d) % R == k % R else None,
+                                    (r + d) % R,
+                                    Recv(tuple(x.shape), x.dtype, x.device)
+                                    if k % R == r else None, (r - d) % R))
+            got = exchange(entries, mesh, meter=False)
+            for j, k in enumerate(ks):
+                if k % R == r:  # the owner: every rank's rows, in rank order
+                    rows = {r: blocks[k]}
+                    rows.update({(r - d) % R: got[j * (R - 1) + d - 1] for d in range(1, R)})
+                    terms[k] = term(torch.cat([rows[q] for q in range(R)]))
+        parts = list(all_reduce_sum(terms, mesh))
+    err = None
+    for part in parts:
+        err = part if err is None else err + part
     return err

@@ -24,6 +24,7 @@ from ``csrc/choco_fused.cu``) or raise.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Sequence
 
@@ -190,11 +191,35 @@ def dtype_scalar(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+# the node count a block's norms are reduced over (see norms_over)
+_NORM_ROWS: list = [None]
+
+
+@contextlib.contextmanager
+def norms_over(rows: int | None):
+    """Inside the block, :func:`node_norms` of a block of nodes reduces as a
+    call over ``rows`` nodes does: the block is padded with zero rows to
+    ``rows``.  A CUDA reduction's order depends on how many rows its call
+    holds, so a rank that holds some of the nodes takes its norms, and
+    quantizes, bit for bit as the one-process round over all of them."""
+    _NORM_ROWS.append(rows)
+    try:
+        yield
+    finally:
+        _NORM_ROWS.pop()
+
+
 def node_norms(resid: torch.Tensor) -> torch.Tensor:
     """Per-node L2 norms of an f32 [m, ...] tensor -> [m] f32.  Both gossip
     paths (packed and fused) take their norms here, so their payloads agree
     bit for bit."""
-    return torch.linalg.vector_norm(resid.reshape(resid.shape[0], -1), dim=1)
+    flat = resid.reshape(resid.shape[0], -1)
+    rows = _NORM_ROWS[-1]
+    if rows is not None and rows > flat.shape[0]:
+        whole = flat.new_zeros((rows, flat.shape[1]))
+        whole[:flat.shape[0]] = flat
+        return torch.linalg.vector_norm(whole, dim=1)[:flat.shape[0]]
+    return torch.linalg.vector_norm(flat, dim=1)
 
 
 def _encode_pass(theta_new, hat, xi, bits: int, with_digest: bool):

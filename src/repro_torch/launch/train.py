@@ -43,8 +43,22 @@ Wire faults, as the reference's:
 cached union wire (mirrors of every in-neighbour's ``theta_hat``, digests,
 staleness-bounded mixing, dense resyncs with backoff); each round logs its
 detections, resyncs and realized bits.  With ``--fused-gossip`` the encode
-runs on the fused kernel's digest variant.  Not yet ported (it raises, see
-ROADMAP.md): ``--gossip-backend ppermute``.
+runs on the fused kernel's digest variant.
+
+The multi-process wire, one block of the nodes per ``torch.distributed``
+rank, only compressed payloads between neighbours:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch qwen3-1.7b --nodes 4 --topology ring \
+      --compressor kq4b --gossip-backend ppermute [--fused-gossip]
+
+Rank r trains nodes ``[r * block, (r + 1) * block)`` on its rows of the
+node-stacked batch stream; rank 0 prints the log and writes
+``--metrics-out``; every rank prints its mesh line, its bytes on the wire
+and its peak memory.  Without a launcher ``ppermute`` runs on a one-rank
+mesh (the reference's degenerate mesh).  ``--checkpoint`` / ``--resume``
+with ``ppermute`` raise: a sharded state file is not yet ported (see
+ROADMAP.md).
 
 Programmatic callers get the run's metrics from :func:`main`, and may pass
 ``wrap_step(step, run, state)`` to run one round inside their own context (a
@@ -67,9 +81,11 @@ import torch
 
 from repro_torch.checkpoint import all_steps, restore_state, save, save_state, step_path
 from repro_torch.configs import get_config
+from repro_torch.core import exchange
 from repro_torch.data import node_token_stream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_node_mesh
 from repro_torch.models import transformer as T
 from repro_torch.tree import leaves
 
@@ -122,7 +138,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused-gossip", action="store_true",
                     help="single-pass fused CUDA gossip (requires a kq* compressor)")
     ap.add_argument("--gossip-backend", choices=("rolled", "ppermute"), default="rolled",
-                    help="'ppermute' not yet ported")
+                    help="'ppermute': each torch.distributed rank trains a block of the nodes "
+                         "and only compressed payloads travel between neighbours")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--checkpoint", default=None, help="path prefix for npz checkpoints")
     ap.add_argument("--checkpoint-every", type=int, default=100,
@@ -142,17 +159,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _fault_totals(cons) -> dict | None:
+def _fault_totals(cons, mesh=None) -> dict | None:
     """Cumulative detections and resyncs over every lane's fault state, and
     the busiest node's delivered bits of the last round (None without a
-    per-edge fault state)."""
+    per-edge fault state); over every rank's nodes on a mesh."""
     lanes = [cons.model, cons.tracker] if hasattr(cons, "tracker") else [cons]
     states = [lane.fault for lane in lanes if hasattr(getattr(lane, "fault", None), "detected")]
     if not states:
         return None
-    return {"detected": sum(int(f.detected.sum()) for f in states),
-            "resyncs": sum(int(f.resyncs.sum()) for f in states),
-            "bits_max": float(sum(f.bits for f in states).max())}
+    counts = torch.tensor([sum(int(f.detected.sum()) for f in states),
+                           sum(int(f.resyncs.sum()) for f in states)], dtype=torch.int64)
+    top = sum(f.bits for f in states).max().reshape(1).float().cpu()
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(counts, group=mesh.group)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.group)
+    return {"detected": int(counts[0]), "resyncs": int(counts[1]), "bits_max": float(top[0])}
 
 
 def _resume(trainer, params, args):
@@ -185,7 +208,19 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
     comp_name = args.compressor if compressor is None else repr(compressor)
     if args.resume and not args.checkpoint:
         raise SystemExit("--resume requires --checkpoint")
+    if args.gossip_backend == "ppermute" and (args.checkpoint or args.resume):
+        raise NotImplementedError("--checkpoint / --resume with --gossip-backend ppermute need "
+                                  "a sharded state file, not yet ported; see ROADMAP.md")
     dev = resolve_device(args.device)
+    mesh, own_group = None, False
+    if args.gossip_backend == "ppermute":
+        import torch.distributed as dist
+
+        own_group = not dist.is_initialized()
+        mesh = make_node_mesh(args.nodes, device=args.device)
+        own_group &= dist.is_initialized()
+        dev = mesh.device
+    lead = mesh is None or mesh.rank == 0  # the process that logs
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -221,6 +256,7 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
         tracker_compressor=args.tracker_compressor,
         fused_gossip=args.fused_gossip,
         gossip_backend=args.gossip_backend,
+        mesh=mesh,
         track_average=False,
         device=dev,
     )
@@ -234,8 +270,9 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
         wire += f"+gt[{trainer.consensus.wire_format}]"
     if trainer.consensus.faults is not None:
         wire += f"+faults[{trainer.consensus.faults}]"
-    print(f"arch={cfg.name} params={n_params:,} nodes={args.nodes} "
-          f"compressor={comp_name} topology={wire}", flush=True)
+    if lead:
+        print(f"arch={cfg.name} params={n_params:,} nodes={args.nodes} "
+              f"compressor={comp_name} topology={wire}", flush=True)
     io = {"save_seconds": [], "save_bytes": [], "restore_seconds": None}
     start_step = 0
     if args.resume:
@@ -258,24 +295,28 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
         next(stream)
     history, seconds = [], []
     aux = None
+    wire_bytes = []
     t0 = time.time()
     for step in range(start_step, args.steps):
-        batch = {"tokens": torch.from_numpy(next(stream)).to(dev)}
+        # this process's rows of the node-stacked batch
+        batch = {"tokens": torch.from_numpy(next(stream)[trainer.rows]).to(dev)}
+        sent0 = exchange.wire_bytes_sent.count
         t_step = time.perf_counter()
         run = lambda state=state, batch=batch: trainer.step(state, batch)
         state, aux = run() if wrap_step is None else wrap_step(step, run, state)
         _sync(dev)
         seconds.append(time.perf_counter() - t_step)
+        wire_bytes.append(exchange.wire_bytes_sent.count - sent0)
         history.append({"losses": aux["losses"].tolist(),
                         "consensus_err": float(aux["consensus_err"]),
                         "lambda_max": float(aux["lambda_mean"].max()),
                         "bits_realized": aux["bits_realized"]})
         if "participation" in aux:
             history[-1]["participation"] = aux["participation"].tolist()
-        fault_totals = _fault_totals(state.consensus)
+        fault_totals = _fault_totals(state.consensus, mesh)
         if fault_totals is not None:
             history[-1]["faults"] = fault_totals
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             losses = np.asarray(history[-1]["losses"])
             alive = (f"alive={int(sum(history[-1]['participation']))}/{args.nodes}  "
                      if "participation" in history[-1] else "")
@@ -294,8 +335,11 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
         if args.checkpoint and done % args.checkpoint_every == 0 and done < args.steps:
             fname = checkpoint(save_state, args.checkpoint, state, step=done)
             print(f"checkpointed full trainer state to {fname}", flush=True)
+    if mesh is not None:
+        print(f"rank {mesh.rank}: wire bytes sent per round {wire_bytes}", flush=True)
     if dev.type == "cuda":
-        print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+        rank = "" if mesh is None else f"rank {mesh.rank}: "
+        print(f"{rank}peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
               flush=True)
 
     if args.checkpoint:
@@ -312,13 +356,18 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
             "worst_loss": float(max(history[-1]["losses"])),
             "consensus_err": history[-1]["consensus_err"],
         }
-        if args.metrics_out:
+        if args.metrics_out and lead:
             with open(args.metrics_out, "w") as f:
                 json.dump(metrics, f, indent=2)
             print(f"wrote metrics to {args.metrics_out}")
-    return {**metrics, "history": history, "step_seconds": seconds, "start_step": start_step,
-            "bits_per_round": trainer.bits_per_round(state), "gamma": trainer.gamma,
-            "checkpoint_io": io}
+    out = {**metrics, "history": history, "step_seconds": seconds, "start_step": start_step,
+           "bits_per_round": trainer.bits_per_round(state), "gamma": trainer.gamma,
+           "checkpoint_io": io, "wire_bytes": wire_bytes}
+    if own_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return out
 
 
 if __name__ == "__main__":

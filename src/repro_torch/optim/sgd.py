@@ -69,6 +69,19 @@ def _add_(p: torch.Tensor, u: torch.Tensor) -> None:
     p.copy_((p.float() + u).to(p.dtype))
 
 
+# SGD updates a node's leaf over flat blocks of this many elements: the f32
+# temporaries of an embedding-sized leaf stay small (the update is
+# elementwise, so the blocks do not change a bit of it)
+_SGD_BLOCK = 1 << 24
+
+
+def _flat_blocks(*xs):
+    """Matching flat blocks of same-sized contiguous tensors."""
+    flats = [x.reshape(-1) for x in xs]
+    for lo in range(0, flats[0].numel(), _SGD_BLOCK):
+        yield [f[lo:lo + _SGD_BLOCK] for f in flats]
+
+
 def sgd(lr: float | Schedule, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
     sched = lr if callable(lr) else (lambda _: float(np.float32(lr)))
 
@@ -79,12 +92,14 @@ def sgd(lr: float | Schedule, momentum: float = 0.0, nesterov: bool = False) -> 
         neg_lr = -sched(state.step)
         for j, p in enumerate(params):
             for i in range(p.shape[0]):
-                g = grads[j][i].float() * scale[i]
-                if momentum != 0:
-                    mu = state.mu[j][i]
-                    mu.copy_(momentum * mu + g)
-                    g = momentum * mu + g if nesterov else mu
-                _add_(p[i], g * neg_lr)
+                own = [p[i], grads[j][i]] + ([state.mu[j][i]] if momentum != 0 else [])
+                for part in _flat_blocks(*own):
+                    g = part[1].float() * scale[i]
+                    if momentum != 0:
+                        mu = part[2]
+                        mu.copy_(momentum * mu + g)
+                        g = momentum * mu + g if nesterov else mu
+                    _add_(part[0], g * neg_lr)
         return OptState(state.step + 1, state.mu, ())
 
     return Optimizer(init, apply_)

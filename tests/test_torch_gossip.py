@@ -289,3 +289,28 @@ def test_synthetic_data_is_byte_identical():
     for _ in range(2):
         (xa, ya), (xb, yb) = next(ga), next(gb)
         assert np.array_equal(xa, xb) and np.array_equal(ya, yb)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_blocks_equal_the_whole_leaf_update(momentum, monkeypatch):
+    """SGD updates a node's leaf over flat blocks (small f32 temporaries for
+    embedding-sized leaves); the update is elementwise, so the blocks change
+    no bit of it."""
+    import sys
+
+    rng = np.random.default_rng(5)
+    p0 = torch.from_numpy(rng.standard_normal((3, 1000, 7)).astype(np.float32)).bfloat16()
+    g = [torch.from_numpy(rng.standard_normal((1000, 7)).astype(np.float32)).bfloat16()
+         for _ in range(3)]
+    scale = torch.tensor([1.0, 0.5, 2.0])
+    mod = sys.modules[sgd.__module__]
+    outs = []
+    for block in (mod._SGD_BLOCK, 999):
+        monkeypatch.setattr(mod, "_SGD_BLOCK", block)
+        p = p0.clone()
+        opt = sgd(0.1, momentum=momentum)
+        st = opt.init([p])
+        for _ in range(2):
+            st = opt.apply_([p], [g], st, scale)
+        outs.append(p)
+    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))

@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import exchange as jexchange
 from repro.core import faults as jfaults
 from repro.core import topology as jtopo
 from repro.core import wire as jwire
 import repro.core as jcore
 import repro_torch.core as tcore
-from repro_torch.core import faults, topology, wire
+from repro_torch.core import exchange, faults, topology, wire
+from repro_torch.launch import mesh as tmesh
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MS = (3, 4, 8)
@@ -88,9 +90,15 @@ def test_exports_match_reference():
     """The wire and plan names the reference's core package exports, and
     the faults and wire modules' ``__all__`` lists."""
     names = ("UnionWirePlan", "compile_union_wire", "init_neighbor_cache", "PermutePlan",
-             "compile_permute_plan", "compile_schedule_plans")
+             "compile_permute_plan", "compile_schedule_plans", "choco_round_ppermute",
+             "mix_stacked_ppermute", "server_average_ppermute", "WireFormat", "PAYLOAD",
+             "DENSE", "HAT_DELTA")
     for n in names:
         assert n in jcore.__all__ and n in tcore.__all__, n
         assert getattr(tcore, n) is not None
     assert faults.__all__ == jfaults.__all__
     assert wire.__all__ == jwire.__all__
+    assert exchange.__all__ == jexchange.__all__
+    for n in exchange.__all__:  # the port's core also re-exports the rest of the wire
+        assert n in tcore.__all__ and getattr(tcore, n) is getattr(exchange, n), n
+    assert "make_node_mesh" in tmesh.__all__ and callable(tmesh.make_node_mesh)

@@ -25,6 +25,7 @@ from repro_torch.launch import quickstart as tquick
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_node_mesh
 from repro_torch.models import transformer as TT
 from repro_torch.serving import ServeEngine
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -135,6 +136,7 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: adgda_trainer(ADGDAConfig(num_nodes=4), lambda p, b, r: 0.0),
         lambda: ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"]),
         lambda: tquick.run(1),
+        lambda: make_node_mesh(4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
