@@ -11,6 +11,8 @@
     python3 chip_smoke.py --phases 1,2,16    # kernels, then the faulted wire (16a, 16b)
     python3 chip_smoke.py --phases 1,9,16,17 # the trainer, the faulted wire, then both on
                                              # rank processes (17a, 17b)
+    python3 chip_smoke.py --phases 1,2,18    # kernels, then llama4-scout-17b-a16e and the
+                                             # dry run against the card (18a, 18b)
     python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
                                              # and this one in turns (no phases)
 
@@ -121,15 +123,27 @@ Phases (any failure exits non-zero):
      rank = its block's share of the chunk plan; the bytes each rank sends
      a round = the formula (PERF.md); seconds, wire seconds and peak memory
      per rank, one 17a fused round profiled on each rank.
-Phases 4-6, 9, 11, 12, 13, 14, 15, 16 and 17 are the main paths: launch counters are
-zeroed just before each run and read just after, and every kernel the run
-goes through must have launched (in phases 11, 13 and 14, once per attention
+ 18. llama4-scout-17b-a16e (16 experts top-1 + shared, 40 query heads on
+     8) at full width and the depth its dry run picks (the deepest whose
+     predicted peak on a one-device mesh is at most 70 GiB, at least 8 of
+     48 layers): (b) the dry run (``launch/dryrun.py``) of the plain prefill
+     B4 S200 and the decode step after it against the card: argument bytes
+     exactly the arguments', predicted peak within 5% of
+     ``max_memory_allocated()``, then one production pair (``decode_32k`` on
+     the fake 16x16 mesh) in its own process, its row and seconds; (a)
+     prefill + 16 decode steps with flash and block-sparse against the
+     plain path (routing pinned), the engine at 12 slots with flash, int8
+     KV and block-sparse (first tokens >= 9/12, launches exact); peak
+     memory and ms/token.
+Phases 4-6, 9 and 11-18 are the main paths: launch counters are zeroed
+just before each run and read just after, and every kernel the run goes
+through must have launched (in phases 11, 13, 14 and 18, once per attention
 layer and model forward).  Phase 2 also checks and times the attention and
-decode kernels at the zoo's shapes (hd 256 and 64; decode at G 48, G 10
-with hd 256, G 4, G 8, G 1 on 16 kv heads and G 1 with hd 64), and the
-decode kernel's split body against its wide body where both apply; the zoo
-rows' launches come from phases 13 and 14.  The line before the last is the
-kernels' JSON summary; the last line is the run's JSON status.
+decode kernels at the zoo's shapes (hd 256 and 64, 40 heads; decode at G 48,
+G 10 with hd 256, G 4, G 8, G 5, G 1 on 16 kv heads and G 1 with hd 64), and
+the decode kernel's split body against its wide body where both apply; the
+zoo rows' launches come from phases 13, 14 and 18.  The line before the
+last is the kernels' JSON summary; the last line is the run's JSON status.
 """
 from __future__ import annotations
 
@@ -138,6 +152,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import random
 import re
 import subprocess
@@ -731,9 +746,17 @@ ZOO_DECODE = {
                                               208, 53)),
     "G1 hd64": dict(B=4, L=256, KV=12, G=1, hd=64, arch="whisper-small", int8_row=True,
                     pos=(15, 47, 127, 24)),
+    # phase 18: llama4-scout-17b-a16e's engine (12 slots of a 1024-row
+    # linear cache, 40 query heads on 8 kv heads)
+    "G5 hd128": dict(B=12, L=1024, KV=8, G=5, hd=128, arch="llama4-scout-17b-a16e",
+                     int8_row=True, pos=(25, 608, 138, 341, 25, 488, 72, 259, 608, 104, 208,
+                                         53)),
 }
 # whisper-small's decoder self-attention prefill (12 heads of 64, causal)
 WHISPER_ATTN = dict(B=4, S=200, H=12, hd=64)
+# llama4-scout-17b-a16e's prefill (phase 18): 40 query heads (8 kv heads
+# repeated), hd 128, causal
+LLAMA4_ATTN = dict(B=4, S=200, H=40, hd=128)
 
 
 def check_wide_shapes(dev) -> dict:
@@ -744,10 +767,11 @@ def check_wide_shapes(dev) -> dict:
     wrapped ring) and at qwen3-4b's G 4 and command-r-35b's G 8 (hd 128,
     272-row caches); for phase 14, flash at whisper-small's hd 64 (12
     heads) and decode at deepseek-moe-16b's G 1 on 16 kv heads and
-    whisper-small's G 1 at hd 64 (bf16 and int8 KV); each against its plain
-    version and timed; then the decode edge cases at the new G and hd.  Each
-    record names the counter and the arch whose phase-13 or phase-14 runs
-    give its launches."""
+    whisper-small's G 1 at hd 64 (bf16 and int8 KV); for phase 18 flash at
+    llama4-scout-17b-a16e's 40 heads and decode at its G 5 (bf16 and int8
+    KV); each against its plain version and timed; then the decode edge
+    cases at the new G and hd.  Each record names the counter and the arch
+    whose phase-13, 14 or 18 runs give its launches."""
     import torch
     import torch.nn.functional as F
 
@@ -852,6 +876,20 @@ def check_wide_shapes(dev) -> dict:
         *sets[0], "bfloat16", pairs(S, None), 20, sets=sets)
     records[rec["name"]] = dict(rec, arch="whisper-small",
                                 source="src/repro_torch/csrc/flash_attn.cu",
+                                replaces="src/repro/kernels/flash_attention.py:120")
+    del sets
+
+    # -- flash at 40 query heads (llama4-scout-17b-a16e's prefill, phase 18)
+    B, S, H, hd = (LLAMA4_ATTN[k] for k in ("B", "S", "H", "hd"))
+    sets = copies_past_l2(lambda: tuple(randn(B, S, H, hd, dtype=torch.bfloat16)
+                                        for _ in range(3)), 4 * B * S * H * hd * 2)
+    rec = attention_row(
+        "flash_attention H40", f"causal B{B} S{S} H{H} (8 kv heads) hd{hd} bf16",
+        lambda a, b_, c: kf.flash_attention(a, b_, c, causal=True),
+        lambda a, b_, c: kf.flash_attention_plain(a, b_, c, causal=True),
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True),
+        *sets[0], "bfloat16", pairs(S, None), 20, sets=sets)
+    records[rec["name"]] = dict(rec, arch=LLAMA4, source="src/repro_torch/csrc/flash_attn.cu",
                                 replaces="src/repro/kernels/flash_attention.py:120")
     del sets
 
@@ -1089,6 +1127,7 @@ def turns(parent: Path) -> None:
 
 # ------------------------------------------------------------ phases 3-6
 QWEN = "qwen3-1.7b"
+LLAMA4 = "llama4-scout-17b-a16e"
 # phase 3 bounds (bf16 at full width, random weights, 28 layers): the
 # kernels accumulate in f32 where the plain path rounds scores and
 # probabilities to bf16, so logits differ by bf16 noise, not by algorithm
@@ -2348,11 +2387,13 @@ def zoo_row(arch: str, counter: str) -> str:
     """The kernels line's row whose shapes ``arch``'s launches of ``counter``
     run: decode at the arch's row of ``ZOO_DECODE`` (internvl2-2b's G 2 at
     the qwen3-1.7b row), recurrentgemma-2b's attention at hd 256,
-    whisper-small's at hd 64, the other archs' at the qwen3-1.7b rows' hd
-    128."""
+    whisper-small's at hd 64, llama4's flash at 40 heads, the other archs'
+    at the qwen3-1.7b rows' hd 128."""
     if counter.startswith("decode"):
         return next((f"{counter} {tag}" for tag, shp in ZOO_DECODE.items()
                      if shp["arch"] == arch), counter)
+    if arch == LLAMA4:  # flash at its 40 heads; block-sparse on the hd-128 row
+        return f"{counter} H40" if counter == "flash_attention" else counter
     return {"recurrentgemma-2b": f"{counter} hd256",
             "whisper-small": f"{counter} hd64"}.get(arch, counter)
 
@@ -2777,6 +2818,180 @@ def families(dev) -> dict[str, dict[str, int]]:
         out[arch] = total
         torch.cuda.empty_cache()
     return out
+
+
+# ----------------------------------------------------------------- phase 18
+# llama4-scout-17b-a16e (106.7 B parameters, 213 GB in bf16) at full width
+# and the depth its dry run picks: the deepest whose predicted peak on one
+# device, for this phase's own shapes, stays within P18_PEAK_GIB
+P18_PEAK_GIB = 70.0
+P18_MIN_LAYERS = 8
+# 18b: the dry run's predicted peak against the card's (PERF.md section 2)
+DRYRUN_PEAK_REL = 0.05
+P18_PAIR = ["--arch", LLAMA4, "--shape", "decode_32k"]
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under ``tree`` (the dry run's count)."""
+    from repro_torch.launch.op_cost import _tensors
+
+    seen = {}
+    for t in _tensors(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def llama4_depth(cfg) -> tuple[int, dict]:
+    """The deepest llama4 (at least P18_MIN_LAYERS) whose dry-run peak on a
+    one-device mesh, for the plain prefill B4 S200 into a 256-row cache and
+    the decode step after it, is at most P18_PEAK_GIB; returns it and its
+    traces.  A layer adds the same bytes, so two depths give the slope and
+    one more trace confirms the pick."""
+    from repro_torch.launch.dryrun import trace_on_one_device
+
+    limit = P18_PEAK_GIB * 2**30
+
+    def traces(layers):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        return {step: trace_on_one_device(c, step, batch=4, seq=200, cache_len=256)
+                for step in ("prefill", "decode")}
+
+    def peak(tr):
+        return max(t.mem["peak_bytes"] for t in tr.values())
+
+    t0 = time.perf_counter()
+    low = traces(P18_MIN_LAYERS)
+    per_layer = peak(traces(P18_MIN_LAYERS + 1)) - peak(low)
+    depth = min(cfg.num_layers, P18_MIN_LAYERS + int((limit - peak(low)) // per_layer))
+    picked = traces(depth)
+    while peak(picked) > limit and depth > P18_MIN_LAYERS:
+        depth -= 1
+        picked = traces(depth)
+    log(f"[18] dry run on a one-device mesh: peak {peak(low) / 2**30:.2f} GiB at "
+        f"{P18_MIN_LAYERS} layers, {per_layer / 2**30:.3f} GiB a layer; {depth} layers peak "
+        f"{peak(picked) / 2**30:.2f} GiB (limit {P18_PEAK_GIB} GiB); "
+        f"{time.perf_counter() - t0:.1f} s of traces")
+    if peak(picked) > limit:
+        raise AssertionError(f"phase 18: no depth of {LLAMA4} fits {P18_PEAK_GIB} GiB")
+    return depth, picked
+
+
+def dryrun_vs_card(cfg, params, dev, traced: dict) -> None:
+    """18b: the plain prefill B4 S200 (256-row cache) and one decode step
+    after it on the card, against the dry run's one-device traces of the
+    same calls: argument bytes exactly the bytes of the arguments on the
+    card, predicted peak within DRYRUN_PEAK_REL of max_memory_allocated()."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    plain = dataclasses.replace(cfg, attn_kernel=None, quantized_kv=False)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 200), generator=gen, device=dev,
+                           dtype=torch.int32)
+    failures = []
+
+    def measured(label, tr, args, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        have = _storage_bytes(args)
+        pred = tr.mem["peak_bytes"]
+        rel = abs(pred - peak) / peak
+        log(f"[18b] {label}: argument bytes dry run {tr.mem['argument_bytes']} / card {have} "
+            f"({'equal' if have == tr.mem['argument_bytes'] else 'DIFFERENT'}); peak dry run "
+            f"{pred / 2**30:.3f} GiB / card {peak / 2**30:.3f} GiB (allocated before "
+            f"{before / 2**30:.3f} GiB): {rel:.2%} apart (bound {DRYRUN_PEAK_REL:.0%}); output "
+            f"{tr.mem['output_bytes'] / 2**20:.1f} MiB, temporaries "
+            f"{tr.mem['temp_bytes'] / 2**20:.1f} MiB; traced in {tr.seconds:.1f} s")
+        if have != tr.mem["argument_bytes"] or rel > DRYRUN_PEAK_REL:
+            failures.append(label)
+        return out
+
+    logits, cache = measured("plain prefill B4 S200, 256-row cache", traced["prefill"],
+                             (params, tokens),
+                             lambda: T.prefill(params, {"tokens": tokens}, plain, 256))
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    pos = torch.tensor(200, dtype=torch.int32, device=dev)
+    del logits
+    torch.cuda.empty_cache()
+    logits, _ = measured("plain decode step at position 200", traced["decode"],
+                         (params, cache, tok, pos),
+                         lambda: T.decode_step(params, tok, cache, pos, plain))
+    if not bool(torch.isfinite(logits).all()):
+        failures.append("non-finite decode logits")
+    del logits, cache
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 18b: the dry run disagrees with the card: {failures}")
+
+
+def dryrun_pair() -> None:
+    """18b: one production pair end to end, ``launch/dryrun.py`` in its own
+    process (the fake 256-rank world of the 16x16 mesh, fake tensors): its
+    row and seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *P18_PAIR, "--out-dir", out]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        secs = time.perf_counter() - t0
+        rows = [json.loads(p.read_text()) for p in sorted(Path(out).glob("*.json"))]
+    for line in run.stdout.splitlines()[-4:]:
+        log(f"[18b]   {line}")
+    if run.returncode != 0 or len(rows) != 1:
+        log(run.stderr[-3000:])
+        raise AssertionError(f"phase 18b: dryrun {' '.join(P18_PAIR)} failed ({run.returncode})")
+    row = rows[0]
+    log(f"[18b] dryrun {' '.join(P18_PAIR)} @ 16x16 in {secs:.1f} s (process): "
+        f"{json.dumps(row)}")
+
+
+def llama4_full_width(dev) -> dict[str, int]:
+    """Phase 18: llama4-scout-17b-a16e at full width (d 5120, 40 heads on 8,
+    16 experts top-1 + shared, vocab 202048) and the depth the dry run picks
+    (18b checks the dry run against the card); prefill + decode with flash
+    and block-sparse against the plain path, routing pinned; the engine at
+    12 slots with flash, flash + int8 KV and block-sparse.  Returns the
+    launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+
+    card = gpu_name_and_limit()
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    full = get_config(LLAMA4)
+    depth, traced = llama4_depth(full)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    total = {name: 0 for name in _build.COUNTERS}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log(f"[18] {LLAMA4}: {T.param_count(full) / 1e9:.3f} B parameters at full depth "
+        f"({full.num_layers} layers); here {depth} layers (the dry run's pick): "
+        f"{T.param_count(cfg) / 1e9:.3f} B ({T.active_param_count(cfg) / 1e9:.3f} B active) in "
+        f"{cfg.dtype}, hd {cfg.hd}, {cfg.num_heads // cfg.num_kv_heads} query heads per kv head")
+    params = T.init_model(cfg, seed=0, device=dev)
+    dryrun_vs_card(cfg, params, dev, traced)
+    prefill_decode_vs_plain(f"[18] {LLAMA4}", cfg, params, dev, ("flash", "block_sparse"))
+    ms = 1e3 * zoo_engines(LLAMA4, cfg, params, dev, FAMILY_LENS["deepseek-moe-16b"], 1024,
+                           total, slots=12, phase=18)[0]
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params
+    torch.cuda.empty_cache()
+    dryrun_pair()
+    log(f"[18] {LLAMA4} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
+        f"{capacity / 2**30:.2f} GiB; ms/token engine {ms:.2f}; "
+        f"{time.perf_counter() - t0:.1f} s; launches { {k: v for k, v in total.items() if v} }")
+    return total
 
 
 # ----------------------------------------------------------------- phase 15
@@ -3930,7 +4145,7 @@ def multi_process_wire(dev, total) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--turns", metavar="PARENT_ROOT",
                     help="instead of the phases: time the attention and decode rows of the "
@@ -4022,6 +4237,11 @@ def main(argv=None) -> int:
                 for k in SERVING_KERNELS:
                     row = zoo_row(arch, k)
                     launches[row] = launches.get(row, 0) + counts[k]
+    if 18 in phases:
+        counts = timed(18, lambda: llama4_full_width(dev))
+        for k in SERVING_KERNELS:
+            row = zoo_row(LLAMA4, k)
+            launches[row] = launches.get(row, 0) + counts[k]
     ft_rows = None
     if 15 in phases:
         breadth, ft_rows = timed(15, lambda: trainer_breadth(dev))

@@ -1,9 +1,5 @@
-"""Architecture registry (same names and aliases as ``repro.configs``).
-
-Only the architectures this port runs have a module here; asking for the
-one that waits (llama4-scout-17b-a16e, more than one card holds) raises
-``NotImplementedError`` naming the roadmap.
-"""
+"""Architecture registry (same names and aliases as ``repro.configs``):
+every architecture of the reference has a config module here."""
 from __future__ import annotations
 
 import importlib
@@ -20,10 +16,6 @@ ARCHS = (
     "qwen3_4b",
     "granite_20b",
 )
-
-#: architectures with a config module (and a model path) in the port
-PORTED = ("qwen3_1_7b", "qwen3_4b", "granite_20b", "command_r_35b", "recurrentgemma_2b",
-          "deepseek_moe_16b", "mamba2_1_3b", "internvl2_2b", "whisper_small")
 
 #: the name each architecture goes by (``--arch``)
 NAMES = {
@@ -47,18 +39,9 @@ def get_config(name: str):
     key = _ALIASES.get(name, name)
     if key not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; choose from {sorted(_ALIASES)}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch; see ROADMAP.md "
-            f"(ported: {', '.join(NAMES[k] for k in PORTED)})"
-        )
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
 
 
 def list_archs() -> tuple[str, ...]:
     return tuple(NAMES[n] for n in ARCHS)
 
-
-def waiting() -> tuple[str, ...]:
-    """Names of the architectures not yet ported."""
-    return tuple(NAMES[n] for n in ARCHS if n not in PORTED)

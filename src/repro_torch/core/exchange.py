@@ -214,6 +214,8 @@ def exchange(entries, mesh, meter: bool = True) -> list:
                               if e[2] is not None and e[2].device.type == "cuda"))
     ops, recvs, staged, o_out, o_in = [], [], False, 0, 0
     group = getattr(mesh, "group", None)
+    # a P2POp names its peer by global rank; the entries by the group's rank
+    peer = (lambda r: r) if group is None else (lambda r: dist.get_global_rank(group, r))
     for tag, ((send, dst, recv, src), raw, n) in enumerate(zip(entries, sends, sizes)):
         if send is not None:
             if card(raw):
@@ -221,7 +223,7 @@ def exchange(entries, mesh, meter: bool = True) -> list:
                 buf.copy_(raw, non_blocking=True)
                 o_out += _aligned(raw.numel())
                 raw, staged = buf, True
-            ops.append(dist.P2POp(dist.isend, raw, dst, group, tag))
+            ops.append(dist.P2POp(dist.isend, raw, peer(dst), group, tag))
             if meter:
                 wire_bytes_sent.count += raw.numel()
         if recv is not None:
@@ -230,7 +232,7 @@ def exchange(entries, mesh, meter: bool = True) -> list:
                 o_in += _aligned(n)
             else:
                 buf = torch.empty((n,), dtype=torch.uint8)
-            ops.append(dist.P2POp(dist.irecv, buf, src, group, tag))
+            ops.append(dist.P2POp(dist.irecv, buf, peer(src), group, tag))
             recvs.append((tag, buf, recv))
     if staged:
         torch.cuda.synchronize()

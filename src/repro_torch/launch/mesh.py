@@ -16,9 +16,20 @@ exchange is a local roll or gather.
 The process group is gloo (:data:`BACKEND`): a card's tensors are staged
 through page-locked host buffers.  NCCL runs one rank per card; ranks that
 share a card (more ranks than cards) need gloo.
+
+The production meshes of ``repro.launch.mesh`` (the dry run's,
+``launch/dryrun.py``): ``(data=16, model=16)`` = 256 devices, and with a
+leading ``pod`` axis of 2, 512.  Here they are a ``DeviceMesh`` over a
+world of fake ranks in one process (``torch.distributed``'s ``"fake"``
+backend, :func:`fake_world`), seen from rank 0: the per-device program, as
+XLA's post-SPMD module is.  Collectives on it move nothing.  The world is
+global state: whoever asks for it sets it up and tears it down
+(:func:`fake_world` is a context manager), so it never meets the trainer's
+gloo worlds.  Functions, not module constants, so importing starts nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -27,7 +38,17 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["BACKEND", "NodeMesh", "make_node_mesh"]
+__all__ = [
+    "BACKEND",
+    "NodeMesh",
+    "make_node_mesh",
+    "fake_device_type",
+    "fake_world",
+    "make_production_mesh",
+    "make_cpu_mesh",
+    "node_axes",
+    "num_nodes",
+]
 
 #: the process group's backend (no automatic switch)
 BACKEND = "gloo"
@@ -93,3 +114,65 @@ def make_node_mesh(num_nodes: int, *, device="cuda", init_method: str | None = N
         print(f"mesh: rank {rank} of {size}, nodes [{rank * block}, {(rank + 1) * block}) "
               f"of {num_nodes}, device {dev} ({cards} cards visible), {kind}", flush=True)
     return mesh
+
+
+# ------------------------------------------------------- production meshes
+def fake_device_type() -> str:
+    """The device the dry run's fake tensors and meshes name: ``"cuda"``
+    where a card is visible, else ``"cpu"`` (without one, even a fake CUDA
+    tensor cannot be indexed).  Nothing runs on it either way."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+@contextlib.contextmanager
+def fake_world(ranks: int):
+    """A world of ``ranks`` fake processes, this one rank 0, for the extent
+    of the ``with``; raises if a process group is already up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ranks)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape: tuple, axes: tuple, device_type: str | None = None):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = 1
+    for n in shape:
+        need *= n
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < need:
+        raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh needs {need} ranks, the world "
+                           f"has {have}: run it inside launch.mesh.fake_world({need}) (the dry "
+                           f"run does) or on real hardware")
+    return init_device_mesh(device_type or fake_device_type(), shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+    """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model"), on the current (fake) world; ``device_type`` defaults to
+    :func:`fake_device_type`."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, device_type)
+
+
+def node_axes(mesh) -> tuple[str, ...]:
+    """Mesh axes the AD-GDA node dimension shards over."""
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def num_nodes(mesh) -> int:
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return int(sizes.get("pod", 1) * sizes["data"])
+
+
+def make_cpu_mesh(data: int = 1, model: int = 1):
+    """A small (data, model) mesh on the current world (``fake_world(data *
+    model)``): the dry run's one-device mesh, a TP-2 mesh in tests."""
+    return _mesh((data, model), ("data", "model"))

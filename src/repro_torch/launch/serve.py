@@ -6,8 +6,9 @@ decode on the consensus model, or a serving fleet.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --reduced --device cpu                         # plain CPU path
 
-``--arch`` takes every config of the registry but llama4-scout-17b-a16e
-(``--help`` lists them).  Batch mode rounds ``--prompt-len`` to whole
+``--arch`` takes every config of the registry (``--help`` lists them;
+llama4-scout-17b-a16e, 213 GB in bf16, fits no one card at full depth).
+Batch mode rounds ``--prompt-len`` to whole
 chunks for mamba2-1.3b and gives whisper-small ``frames`` [B, 1500, 768]
 and internvl2-2b ``patches`` [B, 256, 2048]: stubs of the modality
 frontends, N(0, 0.02²) from the run's seeded generator, as the reference
@@ -83,10 +84,8 @@ def stub_inputs(cfg, batch: int, gen: torch.Generator, dev) -> dict:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ported = ", ".join(configs.NAMES[n] for n in configs.PORTED)
     ap.add_argument("--arch", required=True,
-                    help=f"model config; ported: {ported}; not yet ported (see ROADMAP.md): "
-                         f"{', '.join(configs.waiting())}")
+                    help=f"model config: {', '.join(configs.list_archs())}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -95,6 +95,14 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True if decode cost/state is sub-quadratic in context length."""
+        mixers = {self.mixer_for_layer(i) for i in range(self.num_layers)}
+        if "attn" in mixers:
+            return self.long_context_window is not None
+        return True  # ssm / rglru / local_attn only
+
     def mixer_for_layer(self, i: int) -> str:
         return self.layer_pattern[i % len(self.layer_pattern)]
 

@@ -242,6 +242,13 @@ def row_positions(pos, batch: int, device) -> torch.Tensor:
     return p.expand(batch) if p.numel() == 1 else p
 
 
+def store_rows(dst: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
+               src: torch.Tensor) -> None:
+    """``dst[rows[i], slot[i]] = src[i]`` in place: one decode step's cache
+    write (``launch/dryrun.py`` swaps in its form for placed caches)."""
+    dst[rows, slot] = src
+
+
 def decode_attention(params, x, cache: dict, pos, cfg, *, window: int | None = None,
                      cross_kv=None):
     """One-token decode.  x: [B, 1, d]; pos: int or [B] long (tokens so far,
@@ -273,13 +280,11 @@ def decode_attention(params, x, cache: dict, pos, cfg, *, window: int | None = N
     if quantized:
         kq, ks = ops.quantize_kv(k)
         vq, vs = ops.quantize_kv(v)
-        cache["k"][rows, slot] = kq[:, 0]
-        cache["v"][rows, slot] = vq[:, 0]
-        cache["k_scale"][rows, slot] = ks[:, 0]
-        cache["v_scale"][rows, slot] = vs[:, 0]
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        new = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    for name, t in new.items():
+        store_rows(cache[name], rows, slot, t[:, 0])
 
     idx = torch.arange(length, device=x.device)
     if window is not None:
@@ -343,7 +348,7 @@ def init_embedding(gen, cfg, device):
 
 
 def embed(params, tokens):
-    return params["table"][tokens.long()]
+    return F.embedding(tokens.long(), params["table"])
 
 
 def unembed(params, x):

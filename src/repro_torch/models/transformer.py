@@ -63,7 +63,6 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -114,19 +113,6 @@ __all__ = [
 ]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse a config of an architecture that waits (llama4-scout-17b-a16e:
-    about 109 B parameters, more than one card holds, waits for the
-    multi-GPU wire)."""
-    base = cfg.name.removesuffix("-smoke")
-    if base in configs.waiting():
-        ported = ", ".join(configs.NAMES[n] for n in configs.PORTED)
-        raise NotImplementedError(
-            f"{cfg.name}: not yet ported to repro_torch; see ROADMAP.md "
-            f"(ported: {ported}; not yet: {', '.join(configs.waiting())})"
-        )
-
-
 def _pattern_split(cfg: ModelConfig) -> tuple[int, int, int]:
     """-> (prefix_layers, n_blocks, suffix_layers), as the reference stacks them."""
     p = len(cfg.layer_pattern)
@@ -151,7 +137,6 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, generator: torch.Generator | 
                device="cuda"):
     """Random weights (normal / sqrt(fan_in), ones for norms) from a seeded
     ``torch.Generator`` on ``device``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     layers = [_init_layer(gen, cfg, dev, cfg.mixer_for_layer(i), cfg.ffn_is_moe(i), cfg.is_encdec)
@@ -213,7 +198,6 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int, dev)
 
 def init_cache(cfg: ModelConfig, batch: int, length: int, device="cuda"):
     """Decode cache for ``length`` context: one dict per layer."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     return [_init_layer_cache(cfg, cfg.mixer_for_layer(i), batch, length, dev)
             for i in range(cfg.num_layers)]
@@ -315,19 +299,22 @@ def _fuse_inputs(params, batch, cfg: ModelConfig):
     return x, enc_out
 
 
-def prefill(params, batch, cfg: ModelConfig, cache_len: int):
+def prefill(params, batch, cfg: ModelConfig, cache_len: int, cache=None):
     """Full forward over the prompt that also returns a primed decode cache.
 
     batch["tokens"]: [B, S <= cache_len] (and ``frames`` / ``patches`` for
     whisper / internvl2).  Attention layers write the prompt's K/V into their
     caches (whisper's also the encoder's K/V), recurrent layers their final
     state.  MoE layers route all ``B * S`` tokens together, pad rows and
-    positions included, as the reference's prefill does.  Returns (logits
+    positions included, as the reference's prefill does.  ``cache``: an
+    empty cache of ``init_cache``'s layout to fill in place (the dry run
+    places one on its mesh); default a fresh ``init_cache``.  Returns (logits
     [B, S, V], cache).
     """
     tokens = batch["tokens"]
     x, enc_out = _fuse_inputs(params, batch, cfg)
-    cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device)
     for i, (p, c) in enumerate(zip(params["layers"], cache)):
         kind = cfg.mixer_for_layer(i)
         h = apply_norm(p["norm1"], x)
@@ -389,7 +376,6 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     places; whisper's stacked ``encoder.blocks`` unstack into
     ``encoder.layers``.
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
     want = (cfg.vocab_size, cfg.d_model)
     if tuple(np.shape(tree["embed"]["table"])) != want:
@@ -505,7 +491,6 @@ def _stacked(spec, n: int):
 
 
 def _train_specs(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
     pre, nb, suf = _pattern_split(cfg)
     p_len = len(cfg.layer_pattern)
 
@@ -598,7 +583,6 @@ def forward(params, batch, cfg: ModelConfig):
             f"training with attn_kernel={cfg.attn_kernel!r}: backward kernels not yet ported "
             f"to repro_torch; see ROADMAP.md"
         )
-    _check_supported(cfg)
     pre, nb, suf = _pattern_split(cfg)
     p_len = len(cfg.layer_pattern)
     fused = params
@@ -648,7 +632,9 @@ def lm_loss(params, batch, cfg: ModelConfig, rng=None):
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"][:, 1:]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    # the gold logit's trailing dim dropped after the difference: a gather
+    # from vocab-sharded logits (the dry run's) is a masked pending sum, and
+    # its mask fits the gather's own shape
+    nll = (logz[..., None] - torch.gather(logits, -1, targets[..., None]))[..., 0] * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + cfg.router_aux_weight * aux

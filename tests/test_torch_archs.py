@@ -32,6 +32,7 @@ from repro.configs import get_config as jax_config
 from repro.models import transformer as JT
 from repro.serving import Request as JRequest
 from repro.serving import ServeEngine as JEngine
+from repro_torch import configs
 from repro_torch.checkpoint import restore_jax_params
 from repro_torch.configs import get_config as torch_config
 from repro_torch.launch import serve as tserve
@@ -303,16 +304,15 @@ def test_serve_cli_reduced_on_cpu(arch):
 
 
 def test_unported_arch_names_the_roadmap():
-    """The arch that waits (llama4-scout-17b-a16e, more than one card holds)
-    fails at the registry, and its config fails in the model with the lists
-    of ported and waiting archs."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_config("llama4-scout-17b-a16e")
-    cfg = jax_config("llama4-scout-17b-a16e").reduced()
-    tcfg = type(torch_config("qwen3-4b"))(**{f.name: getattr(cfg, f.name)
-                                             for f in dataclasses.fields(cfg)})
-    with pytest.raises(NotImplementedError,
-                       match="whisper-small.*not yet: llama4-scout-17b-a16e.*"):
-        TT.init_model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.abstract_train_params(tcfg)
+    """No arch waits any more: every name of the reference's registry has a
+    config here, equal to the reference's field for field, and builds its
+    training tree (llama4-scout-17b-a16e, the last, since the dry-run
+    slice); an unknown name still raises."""
+    for name in configs.list_archs():
+        tcfg, jcfg = torch_config(name), jax_config(name)
+        assert {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)} == {
+            f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}, name
+        assert TT.abstract_train_params(tcfg)["embed"]["table"].is_meta
+    assert not hasattr(configs, "waiting") and not hasattr(configs, "PORTED")
+    with pytest.raises(ValueError, match="unknown arch"):
+        torch_config("llama5-scout")

@@ -182,16 +182,21 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("arch,fragment", [
-    ("llama4-scout-17b-a16e", "llama4-scout-17b-a16e-smoke: not yet ported"),
+    ("llama4-scout-17b-a16e", "unknown arch 'llama4-scout-17b-a16e-smoke'"),
 ])
 def test_unported_families_raise(arch, fragment):
+    """Every family is ported: the reduced config of the last one
+    (llama4-scout-17b-a16e, MoE on every layer) builds and runs a forward
+    in the port; only an unknown registry name raises."""
     cfg = dataclasses.replace(jax_config(arch).reduced(), dtype="float32")
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     tcfg = type(torch_config("qwen3-1.7b"))(**fields)
-    with pytest.raises(NotImplementedError, match=fragment):
-        TT.init_model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_config(arch)
+    params = TT.init_model(tcfg, device="cpu")
+    logits, _ = TT.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, tcfg, 8)
+    assert logits.shape == (1, 4, tcfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert torch_config(arch).name == arch
+    with pytest.raises(ValueError, match=fragment):
+        torch_config(cfg.name)
 
 
 def test_block_sparse_knob_raises(weights):

@@ -159,11 +159,13 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
 
 
 def test_unknown_and_unported_configs():
+    """Unknown names raise; none is unported any more (llama4-scout-17b-a16e
+    resolves under both spellings)."""
     assert torch_config("qwen3_1_7b") == torch_config("qwen3-1.7b")
     with pytest.raises(ValueError, match="unknown arch"):
         torch_config("gpt-9")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_config("llama4-scout-17b-a16e")
+    assert torch_config("llama4_scout_17b_a16e") == torch_config("llama4-scout-17b-a16e")
+    assert torch_config("llama4-scout-17b-a16e").num_experts == 16
     assert torch_config("mamba2_1_3b") == torch_config("mamba2-1.3b")
     assert torch_config("qwen3-4b").name == "qwen3-4b"
     assert torch_config("qwen3-1.7b").activation_dtype == torch.bfloat16
