@@ -13,6 +13,7 @@
                                              # rank processes (17a, 17b)
     python3 chip_smoke.py --phases 1,2,18    # kernels, then llama4-scout-17b-a16e and the
                                              # dry run against the card (18a, 18b)
+    python3 chip_smoke.py --phases 1,19      # the zoo's other families trained at full width
     python3 chip_smoke.py --turns PARENT     # attention and decode rows, PARENT's tree
                                              # and this one in turns (no phases)
 
@@ -49,7 +50,8 @@ Phases (any failure exits non-zero):
      rounds) with ``kq4b`` fused gossip and with ``top10``: AD-GDA's worst
      accuracy must not fall below CHOCO-SGD's, and under ``top10`` (which
      draws no noise) both must equal the reference's within 0.01;
- 11. ``launch/serve.py --fleet 2`` at full width (4 slots per node, a zipf
+ 11. ``launch/serve.py --fleet 2`` at full width, on CUT_LAYERS = 7 of
+     qwen3-1.7b's 28 layers (4 slots per node, a zipf
      pool of 64 prompts of 4-512 tokens, 1-32 new tokens, 96 requests) with
      flash, int8-KV decode and block-sparse attention, the --no-fastpath
      twin (its tick fields must equal the fast run's), an overload run
@@ -61,14 +63,16 @@ Phases (any failure exits non-zero):
      must be above the twin's;
  13. the model zoo at full width, one model on the card at a time:
      granite-20b (MQA, 48 query heads on one kv head) and recurrentgemma-2b
-     (RG-LRU + local attention at hd 256) through prefill + decode against
+     (RG-LRU + local attention at hd 256), each on 7 of its layers, through
+     prefill + decode against
      the plain path, ``ServeEngine`` with flash, flash + int8 KV and
      block-sparse prefill, and ``serve.py --fleet 2`` with its --no-fastpath
      twin (recurrentgemma-2b also one 4096-token request that wraps its
      2048-row rings); qwen3-4b and command-r-35b (30.3 B parameters) through
      ``serve.py`` batch mode against the plain path; peak memory per model;
  14. the MoE, SSM, VLM and encoder-decoder configs at full width, one on the
-     card at a time: deepseek-moe-16b (prefill + decode with flash and
+     card at a time: deepseek-moe-16b on 7 of its 28 layers (prefill + decode
+     with flash and
      block-sparse against the plain path, its routing pinned; the engine at
      12 slots with flash, int8 KV and block-sparse; ``serve.py --fleet 2``
      and its twin), mamba2-1.3b (the decode continuing one chunked scan,
@@ -76,7 +80,7 @@ Phases (any failure exits non-zero):
      engine; ``serve.py``), internvl2-2b with ``patches`` and whisper-small
      with ``frames`` (prefill + decode with flash and int8 KV against the
      plain path, the engine, ``serve.py``); peak memory and ms/token;
- 15. the trainer's breadth at full width (15a and 15c on 14 of the 28
+ 15. the trainer's breadth at full width (on CUT_LAYERS = 7 of the 28
      layers): (a) ``launch/train.py`` on 4 nodes for 3 rounds with 25% dropout over round-robin ring + torus and over one-peer
      matchings (``kq4b``, the masked round on the quantize / dequantize
      kernels), then round-robin with block top-k, then 2 nodes with SGD
@@ -88,15 +92,16 @@ Phases (any failure exits non-zero):
      equal, later steps within 1e-3), peak memory; (c) resume: run A 4
      rounds, run B 2 rounds with ``--checkpoint``, run C ``--resume`` to 4:
      C's losses and final theta equal A's (else within two A runs' gap),
-     the checkpoints' seconds and bytes (about 48 GB of free disk needed
+     the checkpoints' seconds and bytes (about 19 GB of free disk needed
      under the temp directory or the checkout, checked first); (d) the
      paper's small-model comparisons with the reference's settings in 7
-     processes on the card, beside (c): FT's nine fault-free rows (bits exact against
+     processes on the card, beside (a)-(c): FT's nine fault-free rows (bits exact against
      ``BENCH_FT.json``, worst accuracy within 0.05 below), the ksweep anchors
      (gt@16 above choco@8 and choco@16, its bits within 1.05 x choco@8's),
      Table 5 on rotated_minority (bits per iteration exact, the reference's
      worst-accuracy order held, DRFA on the reference's client samples);
- 16. the fault-tolerant wire at full width: (a) ``launch/train.py`` on 3
+ 16. the fault-tolerant wire at full width (16a on 7 of the 28 layers):
+     (a) ``launch/train.py`` on 3
      nodes, static ring, ``kq4b``, ``--fault-spec drop:0.2,corrupt:0.1,stale:0``,
      P16_ROUNDS rounds packed, then the same rounds ``--fused-gossip`` (the
      fused encode's digest variant) on the same seeds: the drawn events
@@ -111,14 +116,15 @@ Phases (any failure exits non-zero):
      resyncs > 0, drop rows' worst accuracy >= the twin's - 0.05, worst
      accuracy >= the reference's - 0.05, bits exact, detections and
      resyncs within 20% of the reference's.
- 17. the multi-process wire: ``launch/train.py --gossip-backend ppermute``
-     on rank processes that share the card (gloo through page-locked host
-     buffers, the env a launcher sets): (a) 4 nodes on 2 ranks, ``kq4b``,
-     3 rounds packed then fused; (b) 3 nodes on 3 ranks, ``kq4b`` fused,
-     ``--fault-spec drop:0.2,corrupt:0.1,stale:0``, 4 rounds.  Each rank
+ 17. the multi-process wire, on 7 of the 28 layers: ``launch/train.py
+     --gossip-backend ppermute`` on rank processes that share the card
+     (gloo through page-locked host buffers, the env a launcher sets): (a)
+     4 nodes on 2 ranks, ``kq4b``, 3 rounds packed then fused; (b) 3 nodes
+     on 3 ranks, ``kq4b`` fused, ``--fault-spec drop:0.2,corrupt:0.1,stale:0``,
+     4 rounds.  Each rank
      records per round the chunk digests of its rows of theta, theta_hat, s
-     (and the mirrors), which must equal the one-process run's (phase 9's,
-     16a's, or a run of its own) round by round, with the losses, the
+     (and the mirrors), which must equal the one-process run's (17a's own,
+     16a's or, without phase 16, one of its own) round by round, with the losses, the
      consensus error (1e-6), the fault state and the meter; launches per
      rank = its block's share of the chunk plan; the bytes each rank sends
      a round = the formula (PERF.md); seconds, wire seconds and peak memory
@@ -135,7 +141,20 @@ Phases (any failure exits non-zero):
      plain path (routing pinned), the engine at 12 slots with flash, int8
      KV and block-sparse (first tokens >= 9/12, launches exact); peak
      memory and ms/token.
-Phases 4-6, 9 and 11-18 are the main paths: launch counters are zeroed
+ 19. the zoo's other families trained through ``launch/train.py`` at full
+     width with ``kq4b`` fused gossip, one model on the card at a time
+     (P19_RUNS: whisper-small, internvl2-2b, mamba2-1.3b, recurrentgemma-2b
+     at full depth, deepseek-moe-16b on 6 of its 28 layers), 2 rounds on a
+     ring; whisper's ``frames`` and internvl2's ``patches`` seeded N(0,
+     0.02²) stubs (``serve.stub_inputs``: the reference's zeros do not
+     train); deepseek-moe-16b and mamba2-1.3b also packed (quantize /
+     dequantize), step-0 losses equal to the fused run's and step 1 within
+     1e-3 (deepseek's routing pinned to the fused run's); per run launches
+     = the chunk plan x the rounds, bits = ``payload_bits`` + the dual's,
+     finite losses and consensus error, peak memory at most 70 GiB; round 1
+     of the fused run profiled for deepseek-moe-16b, mamba2-1.3b and
+     recurrentgemma-2b (kernel ms by section).
+Phases 4-6, 9 and 11-19 are the main paths: launch counters are zeroed
 just before each run and read just after, and every kernel the run goes
 through must have launched (in phases 11, 13, 14 and 18, once per attention
 layer and model forward).  Phase 2 also checks and times the attention and
@@ -1874,7 +1893,7 @@ def round_full_width(dev) -> None:
 
 
 # per-round records of the one-process runs that phase 17 holds its ranks
-# against: "9/packed", "9/fused" (phase 9) and "16a/fused" (phase 16)
+# against: "17a/packed", "17a/fused" (its own) and "16a/fused" (phase 16)
 ROUND_RECORDS: dict[str, list] = {}
 
 
@@ -2012,21 +2031,17 @@ def train_full_width(dev) -> dict[str, int]:
         torch.cuda.reset_peak_memory_stats()
         prof_out = {}
 
-        def wrap_step(step, run, state, name=name):
+        def wrap_step(step, run, state):
             if step != 1:
+                return run()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
                 out = run()
-            else:
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    out = run()
-                    torch.cuda.synchronize()
-                    prof_out.update(prof=prof, wall=time.perf_counter() - t0)
-            if name in ("packed", "fused"):  # phase 17a's one-process reference
-                ROUND_RECORDS.setdefault(f"9/{name}", []).append(_round_record(*out))
+                torch.cuda.synchronize()
+                prof_out.update(prof=prof, wall=time.perf_counter() - t0)
             return out
 
         _build.reset_launch_counts()
-        ROUND_RECORDS.pop(f"9/{name}", None)
         metrics = train.main(TRAIN_ARGS + extra, wrap_step=wrap_step, compressor=comp)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
@@ -2102,6 +2117,43 @@ def quickstart(dev) -> None:
                 f"|difference| {off} (bound 0.01)")
             if max(off.values()) > 0.01:
                 raise AssertionError("top10 quickstart departs from the reference's accuracies")
+
+
+# the depth of the paths past the main ones (phases 4-6 and 9 run qwen3-1.7b
+# at full depth): 7 layers, full width, for qwen3-1.7b in the fleet (11) and
+# on the training paths (15a-15c, 16a, 17), and for granite-20b,
+# recurrentgemma-2b (13) and deepseek-moe-16b (14).  What those phases hold
+# (tick fields, served tokens against the plain path, launches per layer and
+# forward, masked rows, the GT lanes, the checkpoints' round trip, the
+# faulted wire, the ranks against one process) holds at any depth, and the
+# cut keeps the whole run under its 1200 s on a card whose host is slow (the
+# whole run moves by ~1.4x with the host: PERF.md section 6).
+CUT_LAYERS = 7
+SERVE_CUT = ("granite-20b", "recurrentgemma-2b", "deepseek-moe-16b")
+
+
+@contextlib.contextmanager
+def _cut_depth(layers: int, arch: str = QWEN, tag: str = "15"):
+    """``launch/train.py``, ``launch/serve.py`` and the phase's own
+    expectations (through ``configs.get_config``) see ``arch`` with
+    ``layers`` of its layers, at full width."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, train
+
+    full = configs.get_config
+    cut = dataclasses.replace(full(arch), num_layers=layers)
+    patched = lambda name: cut if name == arch else full(name)
+    configs.get_config = train.get_config = serve.get_config = patched
+    log(f"[{tag}] {arch} cut to {layers} of {full(arch).num_layers} layers, full width")
+    try:
+        yield cut
+    finally:
+        configs.get_config = train.get_config = serve.get_config = full
+
+
+def _serve_cut(arch: str, tag: str):
+    """``_cut_depth(CUT_LAYERS)`` for the archs of SERVE_CUT, else nothing."""
+    return _cut_depth(CUT_LAYERS, arch, tag) if arch in SERVE_CUT else contextlib.nullcontext()
 
 
 # ----------------------------------------------------------------- phase 11
@@ -2558,54 +2610,61 @@ def zoo_serve_batch(arch, B, dev, total, phase=13, S=256) -> float:
 def model_zoo(dev) -> dict[str, dict[str, int]]:
     """Phase 13: granite-20b, recurrentgemma-2b, qwen3-4b and command-r-35b at
     full width (random bf16 weights from a seeded generator, one model on the
-    card at a time).  Returns each arch's kernel launch counts."""
+    card at a time; granite-20b and recurrentgemma-2b on CUT_LAYERS of their
+    layers).  Returns each arch's kernel launch counts."""
+    card = gpu_name_and_limit()
+    out = {}
+    for arch in ZOO_ARCHS:
+        with _serve_cut(arch, "13"):
+            out[arch] = zoo_model(arch, dev, card)
+    return out
+
+
+def zoo_model(arch, dev, card) -> dict[str, int]:
+    """One model of phase 13; returns its kernel launch counts."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import transformer as T
 
-    card = gpu_name_and_limit()
     capacity = torch.cuda.get_device_properties(dev).total_memory
-    out = {}
-    for arch in ZOO_ARCHS:
-        t0 = time.perf_counter()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        total = {name: 0 for name in _build.COUNTERS}
-        cfg = get_config(arch)
-        layers = attention_layers(cfg)
-        log(f"[13] {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters in {cfg.dtype}, "
-            f"{cfg.num_layers} layers ({layers} attention), hd {cfg.hd}, "
-            f"{cfg.num_heads // cfg.num_kv_heads} query heads per kv head")
-        if arch in ("granite-20b", "recurrentgemma-2b"):
-            params = T.init_model(cfg, seed=0, device=dev)
-            prefill_decode_vs_plain(f"[13] {arch}", cfg, params, dev, ("flash", "block_sparse"))
-            if arch == "granite-20b":
-                zoo_engines(arch, cfg, params, dev, [17, 600, 130, 333, 17, 480, 64, 251], 1024,
-                            total)
-            else:
-                # exact-length prefill: lengths that are multiples of 8, so the
-                # block-sparse prefill finds a block that divides each; the
-                # 2048-row rings of the local layers wrap for 2432 and 3000
-                zoo_engines(arch, cfg, params, dev, [24, 2432, 136, 640, 24, 3000, 64, 1024],
-                            4096, total)
-                rng = random.Random(7)
-                prompt = [rng.randrange(cfg.vocab_size) for _ in range(4096)]
-                for knob in ("flash", "block_sparse"):
-                    long_logits_vs_plain(cfg, params, prompt, dev, 4096 + 32, knob=knob,
-                                         tag="[13] recurrentgemma-2b")
-            del params
-            torch.cuda.empty_cache()
-            zoo_fleet(arch, layers, dev, total)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = {name: 0 for name in _build.COUNTERS}
+    cfg = get_config(arch)
+    layers = attention_layers(cfg)
+    log(f"[13] {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters in {cfg.dtype}, "
+        f"{cfg.num_layers} layers ({layers} attention), hd {cfg.hd}, "
+        f"{cfg.num_heads // cfg.num_kv_heads} query heads per kv head")
+    if arch in ("granite-20b", "recurrentgemma-2b"):
+        params = T.init_model(cfg, seed=0, device=dev)
+        prefill_decode_vs_plain(f"[13] {arch}", cfg, params, dev, ("flash", "block_sparse"))
+        if arch == "granite-20b":
+            zoo_engines(arch, cfg, params, dev, [17, 600, 130, 333, 17, 480, 64, 251], 1024,
+                        total)
         else:
-            zoo_serve_batch(arch, 4 if arch == "qwen3-4b" else 2, dev, total)
-        peak = torch.cuda.max_memory_allocated(dev)
-        log(f"[13] {arch} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
-            f"{capacity / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s; launches "
-            f"{ {k: v for k, v in total.items() if v} }")
-        out[arch] = total
-    return out
+            # exact-length prefill: lengths that are multiples of 8, so the
+            # block-sparse prefill finds a block that divides each; the
+            # 2048-row rings of the local layers wrap for 2432 and 3000
+            zoo_engines(arch, cfg, params, dev, [24, 2432, 136, 640, 24, 3000, 64, 1024],
+                        4096, total)
+            rng = random.Random(7)
+            prompt = [rng.randrange(cfg.vocab_size) for _ in range(4096)]
+            for knob in ("flash", "block_sparse"):
+                long_logits_vs_plain(cfg, params, prompt, dev, 4096 + 32, knob=knob,
+                                     tag="[13] recurrentgemma-2b")
+        del params
+        torch.cuda.empty_cache()
+        zoo_fleet(arch, layers, dev, total)
+    else:
+        zoo_serve_batch(arch, 4 if arch == "qwen3-4b" else 2, dev, total)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[13] {arch} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
+        f"{capacity / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
 
 
 # ----------------------------------------------------------------- phase 14
@@ -2742,9 +2801,20 @@ def mamba_serve_batch() -> float:
 
 
 def families(dev) -> dict[str, dict[str, int]]:
-    """Phase 14: deepseek-moe-16b, mamba2-1.3b, internvl2-2b and whisper-small
-    at full width and depth (random bf16 weights from a seeded generator,
-    one model on the card at a time).  Returns each arch's launch counts."""
+    """Phase 14: deepseek-moe-16b (on CUT_LAYERS of its layers), mamba2-1.3b,
+    internvl2-2b and whisper-small at full width (random bf16 weights from a
+    seeded generator, one model on the card at a time).  Returns each arch's
+    launch counts."""
+    card = gpu_name_and_limit()
+    out = {}
+    for arch in FAMILY_ARCHS:
+        with _serve_cut(arch, "14"):
+            out[arch] = family_model(arch, dev, card)
+    return out
+
+
+def family_model(arch, dev, card) -> dict[str, int]:
+    """One model of phase 14; returns its kernel launch counts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2752,72 +2822,68 @@ def families(dev) -> dict[str, dict[str, int]]:
     from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import transformer as T
 
-    card = gpu_name_and_limit()
     capacity = torch.cuda.get_device_properties(dev).total_memory
     int8 = ("flash, int8 KV", {"attn_kernel": "flash", "quantized_kv": True})
-    out = {}
-    for arch in FAMILY_ARCHS:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = {name: 0 for name in _build.COUNTERS}
+    cfg = get_config(arch)
+    layers = attention_layers(cfg)
+    lens = FAMILY_LENS[arch]
+    log(f"[14] {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters "
+        f"({T.active_param_count(cfg) / 1e9:.3f} B active) in {cfg.dtype}, {cfg.num_layers} "
+        f"layers ({layers} attention" + (f", {cfg.encoder_layers} encoder" if cfg.is_encdec
+                                          else "") + ")"
+        + (f", hd {cfg.hd}, {cfg.num_heads // cfg.num_kv_heads} query heads per kv head"
+           if layers else ""))
+    params = T.init_model(cfg, seed=0, device=dev)
+    ms = {}
+    if arch == "deepseek-moe-16b":
+        prefill_decode_vs_plain(f"[14] {arch}", cfg, params, dev, ("flash", "block_sparse"))
+        ms["engine"] = 1e3 * zoo_engines(arch, cfg, params, dev, lens, 1024, total, slots=12,
+                                         phase=14)[0]
+        del params
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        total = {name: 0 for name in _build.COUNTERS}
-        cfg = get_config(arch)
-        layers = attention_layers(cfg)
-        lens = FAMILY_LENS[arch]
-        log(f"[14] {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters "
-            f"({T.active_param_count(cfg) / 1e9:.3f} B active) in {cfg.dtype}, {cfg.num_layers} "
-            f"layers ({layers} attention" + (f", {cfg.encoder_layers} encoder" if cfg.is_encdec
-                                              else "") + ")"
-            + (f", hd {cfg.hd}, {cfg.num_heads // cfg.num_kv_heads} query heads per kv head"
-               if layers else ""))
-        params = T.init_model(cfg, seed=0, device=dev)
-        ms = {}
-        if arch == "deepseek-moe-16b":
-            prefill_decode_vs_plain(f"[14] {arch}", cfg, params, dev, ("flash", "block_sparse"))
-            ms["engine"] = 1e3 * zoo_engines(arch, cfg, params, dev, lens, 1024, total, slots=12,
-                                             phase=14)[0]
-            del params
-            torch.cuda.empty_cache()
-            ms["fleet"] = zoo_fleet(arch, layers, dev, total, phase=14)
-        elif arch == "mamba2-1.3b":
-            # the served bf16 model is chaotic at random weights (a change under
-            # half a bf16 step moves its logits by tens of percent), so the
-            # continuation is held in f32 and read in bf16 beside that floor
-            mamba_continuation(cfg, params, dev, 256, check=False)
-            mamba_noise_floor(cfg, params, dev)
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            p32 = T.init_model(cfg32, seed=0, device=dev)
-            for S in (256, 512, 1024):
-                mamba_continuation(cfg32, p32, dev, S)
-            mamba_engine(cfg32, p32, dev, check=True)
-            del p32
-            torch.cuda.empty_cache()
-            ms["engine"] = mamba_engine(cfg, params, dev, check=False)
-            del params
-            torch.cuda.empty_cache()
-            ms["serve.py"] = mamba_serve_batch()
-        else:
-            S = 300 if cfg.num_patches else 200  # internvl2's prompts cover its patches
-            prefill_decode_vs_plain(f"[14] {arch}", cfg, params, dev, ("flash", int8), S=S,
-                                    cache_len=512)
-            gen = torch.Generator(device=dev).manual_seed(9)
-            extra = {k: v[0] for k, v in stub_inputs(cfg, 1, gen, dev).items()}
-            cache_len = 1024 if cfg.num_patches else 256  # whisper's prompts are short
-            ms["engine"] = 1e3 * zoo_engines(arch, cfg, params, dev, lens, cache_len, total,
-                                             runs=ENGINE_RUNS[:2], extra=extra, phase=14)[0]
-            del params
-            torch.cuda.empty_cache()
-            ms["serve.py"] = zoo_serve_batch(arch, 4, dev, total, phase=14,
-                                             S=256 if cfg.num_patches else 200)
-        peak = torch.cuda.max_memory_allocated(dev)
-        log(f"[14] {arch} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
-            f"{capacity / 2**30:.2f} GiB; ms/token "
-            f"{', '.join(f'{k} {v:.2f}' for k, v in ms.items())}; "
-            f"{time.perf_counter() - t0:.1f} s; launches "
-            f"{ {k: v for k, v in total.items() if v} }")
-        out[arch] = total
+        ms["fleet"] = zoo_fleet(arch, layers, dev, total, phase=14)
+    elif arch == "mamba2-1.3b":
+        # the served bf16 model is chaotic at random weights (a change under
+        # half a bf16 step moves its logits by tens of percent), so the
+        # continuation is held in f32 and read in bf16 beside that floor
+        mamba_continuation(cfg, params, dev, 256, check=False)
+        mamba_noise_floor(cfg, params, dev)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = T.init_model(cfg32, seed=0, device=dev)
+        for S in (256, 512, 1024):
+            mamba_continuation(cfg32, p32, dev, S)
+        mamba_engine(cfg32, p32, dev, check=True)
+        del p32
         torch.cuda.empty_cache()
-    return out
+        ms["engine"] = mamba_engine(cfg, params, dev, check=False)
+        del params
+        torch.cuda.empty_cache()
+        ms["serve.py"] = mamba_serve_batch()
+    else:
+        S = 300 if cfg.num_patches else 200  # internvl2's prompts cover its patches
+        prefill_decode_vs_plain(f"[14] {arch}", cfg, params, dev, ("flash", int8), S=S,
+                                cache_len=512)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        extra = {k: v[0] for k, v in stub_inputs(cfg, 1, gen, dev).items()}
+        cache_len = 1024 if cfg.num_patches else 256  # whisper's prompts are short
+        ms["engine"] = 1e3 * zoo_engines(arch, cfg, params, dev, lens, cache_len, total,
+                                         runs=ENGINE_RUNS[:2], extra=extra, phase=14)[0]
+        del params
+        torch.cuda.empty_cache()
+        ms["serve.py"] = zoo_serve_batch(arch, 4, dev, total, phase=14,
+                                         S=256 if cfg.num_patches else 200)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[14] {arch} ({card}): peak memory {peak / 2**30:.2f} GiB of the card's "
+        f"{capacity / 2**30:.2f} GiB; ms/token "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in ms.items())}; "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }")
+    torch.cuda.empty_cache()
+    return total
 
 
 # ----------------------------------------------------------------- phase 18
@@ -3232,6 +3298,7 @@ def gt_full_width(dev, total) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.launch import train
+    from repro_torch.models import transformer as T
 
     cfg = get_config(QWEN)
     m, steps, K = 2, 2, 4  # two rounds: the second is the "later" one (a third was cut)
@@ -3270,8 +3337,9 @@ def gt_full_width(dev, total) -> dict:
         hist = metrics["history"]
         log(f"[15b] gt {name}: launches {({k: v for k, v in counts.items() if v})}, expected "
             f"per round {expect[name]} (2 lanes x the chunk plan's {n_enc} encodes); peak "
-            f"memory {peak:.2f} GiB (reckoned: 7 theta-sized bf16 trees 48.2 GB + theta_prev "
-            f"+ the gradients, ~69 GB = 64 GiB); {secs:.1f} s; s/step "
+            f"memory {peak:.2f} GiB (7 theta-sized bf16 trees "
+            f"{7 * 2 * m * T.param_count(cfg) / 1e9:.1f} GB + theta_prev + the gradients); "
+            f"{secs:.1f} s; s/step "
             f"{[round(x, 3) for x in metrics['step_seconds']]}; bits/round "
             f"{metrics['bits_per_round']:.6e}; losses {[h['losses'] for h in hist]}")
         pb = None
@@ -3463,52 +3531,26 @@ def comparisons_on_card(dev, total) -> dict:
     return {"seconds": secs, "rows": {f"{k[0]}|{k[1]}": v for k, v in rows.items()}}
 
 
-# 15a and 15c run qwen3-1.7b at full width on 14 of its 28 layers: 15a holds
-# the masked round's rows and launches, 15c the checkpoints' round trip, at
-# any depth; the cut keeps the whole run near 1000 s with phase 17 (PR 22)
-P15_LAYERS = 14
-
-
-@contextlib.contextmanager
-def _cut_depth(layers: int):
-    """``launch/train.py`` and the phase's own expectations see qwen3-1.7b
-    with ``layers`` of its layers, at full width."""
-    from repro_torch import configs
-    from repro_torch.launch import train
-
-    full = configs.get_config
-    cut = dataclasses.replace(full(QWEN), num_layers=layers)
-    patched = lambda name: cut if name == QWEN else full(name)
-    configs.get_config = train.get_config = patched
-    log(f"[15] qwen3-1.7b cut to {layers} of {full(QWEN).num_layers} layers, full width")
-    try:
-        yield cut
-    finally:
-        configs.get_config = train.get_config = full
-
-
 def trainer_breadth(dev) -> tuple[dict[str, int], dict]:
-    """Phase 15: 15a, 15b, then 15c with 15d beside it (15d's processes are
-    host-bound and light on the card, 15c is mostly checkpoint I/O); returns
-    the gossip kernels' launch counts and 15d's rows (FT's faulted rows among
-    them, which phase 16b holds)."""
+    """Phase 15: 15a, 15b and 15c with 15d beside them (15d's processes are
+    host-bound and light on the card, the others at 7 layers short of its
+    time); returns the gossip kernels' launch counts and 15d's rows (FT's
+    faulted rows among them, which phase 16b holds)."""
     import concurrent.futures as cf
 
     total: dict[str, int] = {}
-    for label, fn in (("15a", masked_full_width), ("15b", gt_full_width)):
-        t0 = time.perf_counter()
-        with _cut_depth(P15_LAYERS) if label == "15a" else contextlib.nullcontext():
-            fn(dev, total)
-        log(f"[{label}] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     side: dict[str, int] = {}  # 15d's launches, counted in its own processes
     with cf.ThreadPoolExecutor(1) as pool:
         comparisons = pool.submit(comparisons_on_card, dev, side)
-        with _cut_depth(P15_LAYERS):
-            resume_full_width(dev, total)
-        log(f"[15c] took {time.perf_counter() - t0:.1f} s (15d beside it)")
+        for label, fn in (("15a", masked_full_width), ("15b", gt_full_width),
+                          ("15c", resume_full_width)):
+            t1 = time.perf_counter()
+            with _cut_depth(CUT_LAYERS, tag=label):
+                fn(dev, total)
+            log(f"[{label}] took {time.perf_counter() - t1:.1f} s (15d beside it)")
         rows = comparisons.result()["rows"]
-    log(f"[15c+15d] took {time.perf_counter() - t0:.1f} s")
+    log(f"[15a-15d] took {time.perf_counter() - t0:.1f} s")
     for k, v in side.items():
         total[k] = total.get(k, 0) + v
     return total, rows
@@ -3785,7 +3827,8 @@ def faulted_wire(dev, ft_rows) -> dict[str, int]:
     """Phase 16: 16a, then 16b; returns the gossip kernels' launch counts."""
     total: dict[str, int] = {}
     t0 = time.perf_counter()
-    faulted_full_width(dev, total)
+    with _cut_depth(CUT_LAYERS, tag="16a"):
+        faulted_full_width(dev, total)
     log(f"[16a] took {time.perf_counter() - t0:.1f} s")
     faulted_ft(dev, ft_rows)
     return total
@@ -3884,7 +3927,8 @@ def p17_rank(cfg_path: str) -> int:
         rec = []
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        train.main(argv, wrap_step=wrap_step)
+        with _cut_depth(cfg["layers"], tag="17"):
+            train.main(argv, wrap_step=wrap_step)
         runs.append({"rec": rec, "seconds": time.perf_counter() - t0,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         torch.cuda.empty_cache()
@@ -3895,10 +3939,10 @@ def p17_rank(cfg_path: str) -> int:
 
 def p17_world(tag: str, runs: list, ranks: int, profile_step=None) -> list[list[dict]]:
     """Start ``ranks`` processes on the card that run ``launch/train.py``
-    with each flag list of ``runs`` in turn (``p17_rank``), with the env a
-    launcher sets; a rank that fails fails the world, and a world past
-    P17_TIMEOUT seconds is killed and fails.  Returns per run the ranks'
-    records."""
+    with each flag list of ``runs`` in turn (``p17_rank``, qwen3-1.7b on
+    CUT_LAYERS of its layers), with the env a launcher sets; a rank that
+    fails fails the world, and a world past P17_TIMEOUT seconds is killed and
+    fails.  Returns per run the ranks' records."""
     import os
     import socket
     import tempfile
@@ -3916,7 +3960,7 @@ def p17_world(tag: str, runs: list, ranks: int, profile_step=None) -> list[list[
     for r in range(ranks):
         conf = tmp / f"{r}.json"
         conf.write_text(json.dumps({"runs": runs, "out": str(tmp / f"{r}.pt"),
-                                    "profile_step": profile_step}))
+                                    "profile_step": profile_step, "layers": CUT_LAYERS}))
         # expandable segments: three ranks' 24 GiB each leave no room for the
         # caching allocator's unused reserved blocks
         env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks), "LOCAL_RANK": str(r),
@@ -3956,8 +4000,8 @@ def p17_world(tag: str, runs: list, ranks: int, profile_step=None) -> list[list[
 
 
 def p17_reference(key: str, argv: list) -> list[dict]:
-    """The one-process run of ``argv`` (phase 9's or 16a's, when that phase
-    did not run), with per-round records."""
+    """The one-process run of ``argv`` (17a's, or 16a's when that phase did
+    not run), with per-round records."""
     import torch
 
     from repro_torch.launch import train
@@ -4023,9 +4067,10 @@ def _p17_log_rounds(tag, ranks) -> None:
 
 
 def multi_process_wire(dev, total) -> dict:
-    """Phase 17: 17a, 4 nodes on 2 ranks, packed then fused, against the
-    one-process runs (phase 9's); 17b, the faulted fused wire, 3 nodes on 3
-    ranks, against 16a's fused rounds 0-3."""
+    """Phase 17 (under ``_cut_depth(CUT_LAYERS)``): 17a, 4 nodes on 2 ranks,
+    packed then fused, against the one-process runs of the same flags; 17b,
+    the faulted fused wire, 3 nodes on 3 ranks, against 16a's fused rounds
+    0-3."""
     import numpy as np
     import torch
 
@@ -4050,8 +4095,7 @@ def multi_process_wire(dev, total) -> dict:
     log(f"[17a] predicted wire bytes per rank and round: {want_bytes} ({n_enc} encodes, "
         f"{K} shifts x one node's payload + {lam_bytes} B of lambda rows)")
     names = {"packed": [], "fused": ["--fused-gossip"]}
-    refs = {name: ROUND_RECORDS.get(f"9/{name}") or p17_reference(f"9/{name}",
-                                                                   TRAIN_ARGS + extra)
+    refs = {name: p17_reference(f"17a/{name}", TRAIN_ARGS + extra)
             for name, extra in names.items()}
     log(f"[17a] {R} ranks: launch/train.py {' '.join(P17A_ARGS)}, then with --fused-gossip, "
         f"in the same processes")
@@ -4142,10 +4186,183 @@ def multi_process_wire(dev, total) -> dict:
 
 
 
+# ----------------------------------------------------------------- phase 19
+# (arch, nodes, --seq, layers kept or None for all), one on the card at a
+# time, width never cut.  deepseek-moe-16b's 16.1 B parameters do not train
+# on one card: 6 of its 28 layers (one dense, five MoE, 3.2 B) on 2 nodes.
+# internvl2-2b's 256 patches need --seq 512 (256 positions of text);
+# mamba2-1.3b's --seq is one SSD chunk.
+P19_RUNS = (("whisper-small", 4, 128, None), ("internvl2-2b", 3, 512, None),
+            ("mamba2-1.3b", 4, 256, None), ("recurrentgemma-2b", 3, 128, None),
+            ("deepseek-moe-16b", 2, 128, 6))
+P19_PACKED = ("deepseek-moe-16b", "mamba2-1.3b")  # leaves new to the chunk plan
+P19_PROFILED = ("deepseek-moe-16b", "mamba2-1.3b", "recurrentgemma-2b")
+P19_ARGS = ["--batch-per-node", "4", "--topology", "ring", "--compressor", "kq4b",
+            "--steps", "2", "--log-every", "1"]
+P19_PEAK_GIB = 70.0
+P19_STUB_SEED = 19
+
+
+@contextlib.contextmanager
+def _stub_batches(seed: int):
+    """``launch/train.py`` builds each round's batch with seeded N(0, 0.02²)
+    ``frames`` / ``patches`` (``serve.stub_inputs``, drawn over the node
+    rows) in place of the reference's zeros: a norm over a constant row
+    divides by ``sqrt(eps)``, and whisper's and internvl2's gradients
+    overflow (``launch/train.py``'s docstring)."""
+    import torch
+
+    from repro_torch.launch import serve, train
+
+    real = train.make_batch
+    gens: dict = {}
+
+    def make_batch(tokens, cfg, round_batch, device):
+        dev = torch.device(device)
+        gen = gens.setdefault(dev, torch.Generator(device=dev).manual_seed(seed))
+        lead = (tokens.shape[0], round_batch)
+        stubs = serve.stub_inputs(cfg, lead[0] * lead[1], gen, dev)
+        return {"tokens": tokens.to(dev),
+                **{k: v.reshape(lead + tuple(v.shape[1:])) for k, v in stubs.items()}}
+
+    train.make_batch = make_batch
+    try:
+        yield
+    finally:
+        train.make_batch = real
+
+
+def train_family(arch, m, seq, total) -> None:
+    """One family of phase 19: ``launch/train.py`` fused (and packed for
+    P19_PACKED), its launches, bits, losses and peak against the chunk plan
+    of its stacked template; the launches are added to ``total``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import payload_bits
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelQuantization
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    tag = f"[19] {arch}"
+    cfg = get_config(arch)
+    stubbed = cfg.is_encdec or cfg.num_patches > 0
+    steps = int(P19_ARGS[P19_ARGS.index("--steps") + 1])
+    n_enc = _chunk_plan(cfg, m)
+    K = len(ring(m).shifts)  # shifts of the ring's mixing, 0 included
+    template = [torch.empty((m,) + tuple(p.shape), device="meta")
+                for p in leaves(T.abstract_train_params(cfg))]
+    want_bits = payload_bits(KernelQuantization(4), template, ring(m)) + 32.0 * m * (K - 1)
+    expect = {"fused": {"fused_encode": n_enc, "fused_mix": n_enc * -(-K // 8)},
+              "packed": {"quantize": m * n_enc, "dequantize": m * (1 + K) * n_enc}}
+    log(f"{tag}: {cfg.num_layers} layers, d {cfg.d_model}, {T.param_count(cfg) / 1e9:.3f} B "
+        f"parameters a node, {m} nodes on a ring, --seq {seq}; chunk plan {n_enc} encodes a "
+        f"round; expected launches a round {expect}"
+        + ("; frames / patches: seeded N(0, 0.02²) stubs (the reference's zeros overflow "
+           "the gradients)" if stubbed else ""))
+    pin = RoutingPin()
+    runs = {}
+    for name in ("fused", "packed") if arch in P19_PACKED else ("fused",):
+        argv = (["--arch", arch, "--nodes", str(m), "--seq", str(seq)] + P19_ARGS
+                + (["--fused-gossip"] if name == "fused" else []))
+        log(f"{tag} {name}: launch/train.py {' '.join(argv)}")
+        prof_out: dict = {}
+
+        def wrap_step(step, run, state, name=name):
+            if step != 1 or name != "fused" or arch not in P19_PROFILED:
+                return run()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                prof_out.update(prof=prof, wall=time.perf_counter() - t0)
+            return res
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        # the fused run's routing, replayed by the packed run: one bf16 flip
+        # would move a token to another expert and the losses apart
+        routing = pin.record() if name == "fused" else pin.replay()
+        t0 = time.perf_counter()
+        with routing, _stub_batches(P19_STUB_SEED) if stubbed else contextlib.nullcontext():
+            metrics = train.main(argv, wrap_step=wrap_step)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        hist = metrics["history"]
+        log(f"{tag} {name}: {secs:.1f} s in train.main; s per round "
+            f"{[round(x, 3) for x in metrics['step_seconds']]}"
+            + (" (round 1 under the profiler)" if prof_out else "")
+            + f"; peak memory {peak:.2f} GiB ({gpu_name_and_limit()}); launches "
+            f"{({k: v for k, v in counts.items() if v})}; bits/round "
+            f"{metrics['bits_per_round']:.6e} (payload_bits + the dual: {want_bits:.6e}); "
+            f"losses {[h['losses'] for h in hist]}; consensus error "
+            f"{[h['consensus_err'] for h in hist]}; lambda_max "
+            f"{[h['lambda_max'] for h in hist]}" + (pin.note() if name == "packed" else ""))
+        failures = []
+        for k, per_round in expect[name].items():
+            if counts[k] != per_round * steps:
+                failures.append(f"{k} launched {counts[k]} times, the chunk plan gives "
+                                f"{per_round} x {steps}")
+        if metrics["bits_per_round"] != want_bits:
+            failures.append(f"bits/round {metrics['bits_per_round']} != {want_bits}")
+        if not all(math.isfinite(x) for h in hist for x in h["losses"] + [h["consensus_err"]]):
+            failures.append("non-finite losses or consensus error")
+        if peak > P19_PEAK_GIB:
+            failures.append(f"peak {peak:.2f} GiB > {P19_PEAK_GIB}")
+        if prof_out:
+            host: dict = {}
+            pb = _profile_breakdown(prof_out.pop("prof"), prof_out["wall"], host)
+            log(f"{tag} {name} round 1 under torch.profiler: wall {pb['wall_ms']:.1f} ms, "
+                f"kernels busy {pb['busy_ms']:.1f} ms ({pb['busy_ms'] / pb['wall_ms']:.1%}); "
+                f"kernel ms by section {({k: round(v, 1) for k, v in pb['busy'].items()})}; "
+                f"device span ms by section "
+                f"{({k: round(v, 1) for k, v in pb['spans_ms'].items()})}; host ms by section "
+                f"{({k: round(v, 1) for k, v in host.items()})}; read in {pb['read_s']:.1f} s")
+            for ms_, count, key in pb["top"]:
+                log(f"[19]   {ms_:9.2f} ms x{count:<6d} {key[:90]}")
+        if failures:
+            raise AssertionError(f"phase 19 {arch} {name}: {failures}")
+        runs[name] = hist
+        del metrics
+    if "packed" in runs:
+        f, p = runs["fused"], runs["packed"]
+        if f[0]["losses"] != p[0]["losses"]:
+            raise AssertionError(f"phase 19 {arch}: step-0 losses differ: {f[0]['losses']} / "
+                                 f"{p[0]['losses']}")
+        rel = max(abs(a - b) / abs(b) for s_ in range(1, steps)
+                  for a, b in zip(f[s_]["losses"], p[s_]["losses"]))
+        log(f"{tag}: step-0 losses equal (fused == packed); step 1 max relative difference "
+            f"{rel:.3e} (bound {LOSS_REL_BOUND})")
+        if rel > LOSS_REL_BOUND:
+            raise AssertionError(f"phase 19 {arch}: fused and packed disagree")
+    torch.cuda.empty_cache()
+
+
+def zoo_trains() -> dict[str, int]:
+    """Phase 19: each family of P19_RUNS in turn; returns the gossip
+    kernels' launch counts."""
+    total: dict[str, int] = {}
+    for arch, m, seq, layers in P19_RUNS:
+        t0 = time.perf_counter()
+        with _cut_depth(layers, arch, tag="19") if layers else contextlib.nullcontext():
+            train_family(arch, m, seq, total)
+        log(f"[19] {arch} took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--turns", metavar="PARENT_ROOT",
                     help="instead of the phases: time the attention and decode rows of the "
@@ -4224,7 +4441,8 @@ def main(argv=None) -> int:
     if 10 in phases:
         timed(10, lambda: quickstart(dev))
     if 11 in phases:
-        fleet = timed(11, lambda: fleet_full_width(dev))
+        with _cut_depth(CUT_LAYERS, tag="11"):
+            fleet = timed(11, lambda: fleet_full_width(dev))
         for k in SERVING_KERNELS:
             launches[k] = launches.get(k, 0) + fleet[k]
     if 12 in phases:
@@ -4252,9 +4470,14 @@ def main(argv=None) -> int:
         for k in GOSSIP_KERNELS:
             launches[k] = launches.get(k, 0) + faulted.get(k, 0)
     if 17 in phases:
-        ranks = timed(17, lambda: multi_process_wire(dev, {}))
+        with _cut_depth(CUT_LAYERS, tag="17"):
+            ranks = timed(17, lambda: multi_process_wire(dev, {}))
         for k in GOSSIP_KERNELS:
             launches[k] = launches.get(k, 0) + ranks.get(k, 0)
+    if 19 in phases:
+        trained = timed(19, zoo_trains)
+        for k in GOSSIP_KERNELS:
+            launches[k] = launches.get(k, 0) + trained.get(k, 0)
 
     log(f"[all] phases {sorted(phases)} took {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_limit(), flush=True)  # again, beside the numbers it qualifies

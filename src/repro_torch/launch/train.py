@@ -60,6 +60,23 @@ mesh (the reference's degenerate mesh).  ``--checkpoint`` / ``--resume``
 with ``ppermute`` raise: a sharded state file is not yet ported (see
 ROADMAP.md).
 
+The batch is the reference's (:func:`make_batch`): the tokens, and for the
+encoder-decoder (whisper-small) all-zero ``frames``, for the VLM
+(internvl2-2b) all-zero ``patches`` over the first ``num_patches``
+positions, which must fit in ``--seq`` (internvl2-2b's 256 patches need
+``--seq 512`` for 256 positions of text).  Zero inputs are the reference's
+stub, and they do not train.  A norm over a constant row divides by
+``sqrt(eps)``: the encoder's LayerNorm of every zero frame (whisper), and
+the RMSNorm of the zero patch rows that the text positions attend to
+(internvl2).  Each layer then multiplies the gradient by up to ``1/sqrt(eps)
+= 1e3``.  At reduced width whisper's gradients pass 1e8 and the consensus
+error is ~1e20 after one round; at full width the reference CLI's whisper
+run is NaN after round 0.  internvl2's gradient is not finite at its 24
+layers, at reduced width too (``tests/test_torch_zoo_train.py`` holds the
+port and the reference to both).  The CLI copies the zeros, for parity.  A caller who wants a run that trains
+replaces :func:`make_batch` with seeded N(0, 0.02²) stubs
+(``launch/serve.py::stub_inputs``), as ``chip_smoke.py`` phase 19 does.
+
 Programmatic callers get the run's metrics from :func:`main`, and may pass
 ``wrap_step(step, run, state)`` to run one round inside their own context (a
 profiler, say): it must call ``run()`` and return its result, the round's
@@ -152,6 +169,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
+
+
+def make_batch(tokens: torch.Tensor, cfg, round_batch: int, device) -> dict:
+    """One round's batch, as the reference CLI builds it: ``tokens`` [m,
+    round_batch, S] (this process's rows of the node axis) and, over the
+    same rows, all-zero f32 ``frames`` [m, round_batch, encoder_context, d]
+    for the encoder-decoder and ``patches`` [m, round_batch, num_patches, d]
+    for the VLM."""
+    batch = {"tokens": tokens.to(device)}
+    lead = (tokens.shape[0], round_batch)
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros(lead + (cfg.encoder_context, cfg.d_model),
+                                      dtype=torch.float32, device=device)
+    if cfg.num_patches > 0:
+        batch["patches"] = torch.zeros(lead + (cfg.num_patches, cfg.d_model),
+                                       dtype=torch.float32, device=device)
+    return batch
 
 
 def _sync(dev: torch.device) -> None:
@@ -299,7 +333,7 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
     t0 = time.time()
     for step in range(start_step, args.steps):
         # this process's rows of the node-stacked batch
-        batch = {"tokens": torch.from_numpy(next(stream)[trainer.rows]).to(dev)}
+        batch = make_batch(torch.from_numpy(next(stream)[trainer.rows]), cfg, round_batch, dev)
         sent0 = exchange.wire_bytes_sent.count
         t_step = time.perf_counter()
         run = lambda state=state, batch=batch: trainer.step(state, batch)

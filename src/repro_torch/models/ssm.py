@@ -82,10 +82,18 @@ def _gated_norm(y, z, scale, eps=1e-6):
     return (gf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
 
 
-def mamba2_scan(params, x: torch.Tensor, cfg, return_state: bool = True):
+def apply_mamba2(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence (train/prefill) chunked SSD.  x: [B, S, d] -> [B, S, d]."""
+    y, _ = mamba2_scan(params, x, cfg, return_state=False)
+    return y
+
+
+def mamba2_scan(params, x: torch.Tensor, cfg, return_state: bool = True, init_state=None):
     """Full-sequence chunked SSD.  x: [B, S, d] -> (y [B, S, d], state),
     ``state = {"ssm": [B, H, P, N] f32, "conv": [B, W-1, conv_ch]}`` (the
-    last ``W-1`` pre-activation conv inputs) or None."""
+    last ``W-1`` pre-activation conv inputs) or None.  ``init_state``: the
+    SSM state [B, H, P, N] f32 that enters the first chunk (default zeros);
+    the conv starts from zeros either way, as in the reference."""
     B, S, d = x.shape
     di, H, N, conv_ch = dims(cfg)
     P = cfg.ssm_head_dim
@@ -106,7 +114,8 @@ def mamba2_scan(params, x: torch.Tensor, cfg, return_state: bool = True):
     A = -torch.exp(params["A_log"])  # [H], negative
 
     tril = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
-    state = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+    state = (torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+             if init_state is None else init_state)
     ys = []
     for c in range(nc):
         sl = slice(c * L, (c + 1) * L)

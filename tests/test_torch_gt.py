@@ -24,29 +24,15 @@ from repro.data import node_token_stream
 from repro.launch import steps as jsteps
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as torch_config
-from repro_torch.core import gossip, topology
+from repro_torch.core import topology
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.trainer import ChocoConsensus, GradientTrackingConsensus
 from repro_torch.launch import steps as tsteps
 from repro_torch.tree import leaves, unflatten
+from torch_reference_noise import reference_noise
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 M, STEPS, REL = 4, 3, 1e-5
-
-
-def _reference_noise(key, template, compressor):
-    """{(leaf, None): xi [M, ...]} of a lane keyed ``key`` (no leaf is
-    chunked at this size)."""
-    flat = jax.tree_util.tree_leaves(template)
-    out = {}
-    for li, (leaf, k) in enumerate(zip(flat, jax.random.split(key, len(flat)))):
-        assert gossip._scan_plan(leaf.shape, int(np.prod(leaf.shape[1:])),
-                                 gossip.BLOCK_SCAN_ELEMS) is None
-        shape = compressor.noise_shape(M, leaf.shape[1:])
-        if shape is not None:
-            out[(li, None)] = np.stack([np.asarray(jax.random.uniform(nk, shape[1:]))
-                                        for nk in jax.random.split(k, M)])
-    return out
 
 
 def _strong_lam(jstate):
@@ -82,11 +68,11 @@ def _run_both(local_steps=1, **kw):
     for _ in range(STEPS):
         tokens = next(stream)
         keys = jax.random.split(jstate.rng, M + 2)
-        model_xi = _reference_noise(keys[1], jstate.theta, ttr.compressor)
+        model_xi = reference_noise(keys[1], jstate.theta, ttr.compressor, M)
         noise = _injected(model_xi)
         if gt:
-            noise = (noise, _injected(_reference_noise(jax.random.fold_in(keys[1], 1),
-                                                       jstate.theta, tcomp)))
+            noise = (noise, _injected(reference_noise(jax.random.fold_in(keys[1], 1),
+                                                       jstate.theta, tcomp, M)))
         jstate, jaux = jtr.step(jstate, {"tokens": jnp.asarray(tokens)})
         tstate, taux = ttr.step(tstate, {"tokens": torch.from_numpy(tokens)}, noise=noise)
         assert _rel(taux["losses"].numpy(), jaux["losses"]) <= REL

@@ -107,3 +107,28 @@ def test_scan_refuses_a_partial_chunk():
     _, tcfg, _, tp = _setup()
     with pytest.raises(ValueError, match="divisible by ssm chunk"):
         TS.mamba2_scan(tp, torch.zeros(1, tcfg.ssm_chunk + 3, tcfg.d_model), tcfg)
+
+
+def test_apply_mamba2_matches_jax():
+    """``apply_mamba2``: the scan's output alone, as the reference's."""
+    jcfg, tcfg, jp, tp = _setup(seed=6)
+    x = _x(2, 2 * jcfg.ssm_chunk, jcfg.d_model, seed=9)
+    ty = TS.apply_mamba2(tp, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(JS.apply_mamba2(jp, jnp.asarray(x), jcfg)),
+                               **TOL)
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_scan_from_an_initial_state_matches_jax(chunks):
+    """``init_state``: a non-zero SSM state entering the first chunk (the
+    conv still starts from zeros, on both sides)."""
+    jcfg, tcfg, jp, tp = _setup(seed=7)
+    x = _x(2, chunks * jcfg.ssm_chunk, jcfg.d_model, seed=10)
+    _, H, N, _ = TS.dims(tcfg)
+    h0 = _x(2, H, tcfg.ssm_head_dim * N, seed=11, scale=0.5).reshape(2, H, tcfg.ssm_head_dim, N)
+    jy, js = JS.mamba2_scan(jp, jnp.asarray(x), jcfg, init_state=jnp.asarray(h0))
+    ty, ts = TS.mamba2_scan(tp, torch.from_numpy(x), tcfg, init_state=torch.from_numpy(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(ts["ssm"].numpy(), np.asarray(js["ssm"]), **TOL)
+    zero, _ = TS.mamba2_scan(tp, torch.from_numpy(x), tcfg)
+    assert not torch.allclose(ty, zero)  # the state did enter

@@ -23,29 +23,14 @@ from repro.launch import steps as jsteps
 from repro.launch import train as jtrain
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as torch_config
-from repro_torch.core import gossip
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.tree import leaves, unflatten
+from torch_reference_noise import reference_noise
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 M, STEPS = 4, 3
 REL = 1e-5
-
-
-def _reference_noise(key, template, compressor):
-    """{(leaf, None): xi [M, ...]}: the reference's per-encode noise for a
-    round keyed ``key`` (no leaf is chunked at this size)."""
-    flat = jax.tree_util.tree_leaves(template)
-    out = {}
-    for li, (leaf, k) in enumerate(zip(flat, jax.random.split(key, len(flat)))):
-        assert gossip._scan_plan(leaf.shape, int(np.prod(leaf.shape[1:])),
-                                 gossip.BLOCK_SCAN_ELEMS) is None
-        shape = compressor.noise_shape(M, leaf.shape[1:])
-        if shape is not None:
-            out[(li, None)] = np.stack([np.asarray(jax.random.uniform(nk, shape[1:]))
-                                        for nk in jax.random.split(k, M)])
-    return out
 
 
 def _rel(a, b):
@@ -78,7 +63,7 @@ def test_trainer_matches_reference(spec, fused, robust):
         # the reference's round key: split(rng, m + 2) -> (next rng, gossip key, ...)
         keys = jax.random.split(rng, M + 2)
         rng, gossip_key = keys[0], keys[1]
-        xi = _reference_noise(gossip_key, jstate.theta, ttr.compressor)
+        xi = reference_noise(gossip_key, jstate.theta, ttr.compressor, M)
         jstate, jaux = jtr.step(jstate, {"tokens": jnp.asarray(tokens)})
         tstate, taux = ttr.step(tstate, {"tokens": torch.from_numpy(tokens)},
                                 noise=lambda li, ci, shape: torch.from_numpy(xi[(li, ci)]))
