@@ -10,7 +10,8 @@
     python3 chip_smoke.py --phases 1,2,15    # kernels, then the trainer's breadth (15a-15d)
     python3 chip_smoke.py --phases 1,2,16    # kernels, then the faulted wire (16a, 16b)
     python3 chip_smoke.py --phases 1,9,16,17 # the trainer, the faulted wire, then both on
-                                             # rank processes (17a, 17b)
+                                             # rank processes (17a, 17b), and a run
+                                             # checkpointed and resumed on them (17c)
     python3 chip_smoke.py --phases 1,2,18    # kernels, then llama4-scout-17b-a16e and the
                                              # dry run against the card (18a, 18b)
     python3 chip_smoke.py --phases 1,19      # the zoo's other families trained at full width
@@ -128,7 +129,17 @@ Phases (any failure exits non-zero):
      consensus error (1e-6), the fault state and the meter; launches per
      rank = its block's share of the chunk plan; the bytes each rank sends
      a round = the formula (PERF.md); seconds, wire seconds and peak memory
-     per rank, one 17a fused round profiled on each rank.
+     per rank, one 17a fused round profiled on each rank; (c) resume on
+     the ranks: 2 nodes on 2 ranks, ``kq4b`` fused, run A 4 rounds, run B 2
+     rounds with ``--checkpoint`` (rank 0 writes the one state file,
+     gathering the other rank's rows), run C ``--resume`` to 4 on the
+     ranks, run D ``--resume`` to 4 in one process on the rolled backend
+     from B's file: C's and D's losses of rounds 2-3 and chunk digests
+     after round 4 equal A's bit for bit, B's file has the one-process
+     file's leaves (names, shapes, dtypes; whole [2, ...]), the fused
+     kernels launch the chunk plan once a round in every run; each save's
+     and restore's seconds and GB and the bytes each rank sent to rank 0
+     (about 19 GB of free disk needed, checked first).
  18. llama4-scout-17b-a16e (16 experts top-1 + shared, 40 query heads on
      8) at full width and the depth its dry run picks (the deepest whose
      predicted peak on a one-device mesh is at most 70 GiB, at least 8 of
@@ -169,6 +180,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -463,9 +475,9 @@ def check_kernels(dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode as kd
-    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import sliding_window as ksw
     from repro_torch.kernels.ref import p_rounding_bound, quantize_kv_ref
+    kf = importlib.import_module("repro_torch.kernels.flash_attention")  # not the wrapper
 
     gen = torch.Generator(device=dev).manual_seed(0)
     records: dict[str, dict] = {}
@@ -796,10 +808,10 @@ def check_wide_shapes(dev) -> dict:
 
     from repro_torch.kernels import block_sparse as kbs
     from repro_torch.kernels import decode as kd
-    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import sliding_window as ksw
     from repro_torch.kernels.flash_attention import tile_q
     from repro_torch.kernels.ref import block_sparse_mask, p_rounding_bound, quantize_kv_ref
+    kf = importlib.import_module("repro_torch.kernels.flash_attention")  # not the wrapper
 
     gen = torch.Generator(device=dev).manual_seed(17)
     failures: list[str] = []
@@ -1028,9 +1040,9 @@ def time_rows(dev) -> dict[str, dict]:
 
     from repro_torch.kernels import block_sparse as kbs
     from repro_torch.kernels import decode as kd
-    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import sliding_window as ksw
     from repro_torch.kernels.ref import block_sparse_mask, quantize_kv_ref
+    kf = importlib.import_module("repro_torch.kernels.flash_attention")  # not the wrapper
 
     gen = torch.Generator(device=dev).manual_seed(23)
     rows: dict[str, dict] = {}
@@ -1549,8 +1561,8 @@ def check_gossip_kernels(dev) -> dict:
     import torch
 
     from repro_torch.kernels import choco_fused as kc
-    from repro_torch.kernels import quantize as kq
     from repro_torch.kernels.ref import encode_scale, f32_full, tau_for
+    kq = importlib.import_module("repro_torch.kernels.quantize")  # not the wrapper
 
     gen = torch.Generator(device=dev).manual_seed(5)
     failures: list[str] = []
@@ -3928,9 +3940,10 @@ def p17_rank(cfg_path: str) -> int:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _cut_depth(cfg["layers"], tag="17"):
-            train.main(argv, wrap_step=wrap_step)
+            metrics = train.main(argv, wrap_step=wrap_step)
         runs.append({"rec": rec, "seconds": time.perf_counter() - t0,
-                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "io": metrics["checkpoint_io"], "start_step": metrics["start_step"]})
         torch.cuda.empty_cache()
     torch.save(runs, cfg["out"])
     dist.destroy_process_group()
@@ -3986,7 +3999,8 @@ def p17_world(tag: str, runs: list, ranks: int, profile_step=None) -> list[list[
     for r in range(ranks):
         for line in (tmp / f"{r}.log").read_text().splitlines():
             if any(k in line for k in ("mesh:", "wire bytes", "peak device", "step ", "Error",
-                                       "error", "Traceback")):
+                                       "error", "Traceback", "resumed", "saved final",
+                                       "unreadable")):
                 log(f"[{tag} r{r}] {line.strip()[:400]}")
     codes = [p.returncode for p, _ in procs]
     if hung or any(c != 0 for c in codes):
@@ -4180,9 +4194,169 @@ def multi_process_wire(dev, total) -> dict:
          "bytes_per_round": [x["wire_bytes"] for x in w["rec"]], "peak_gib": w["peak_gib"]}
         for w in ranks]}
     log(f"[17b] {secs:.1f} s for the world; {out['17b']}")
+    t0 = time.perf_counter()
+    out["17c"] = resume_on_ranks(cfg, total, failures)
+    log(f"[17c] {time.perf_counter() - t0:.1f} s for 17c ({gpu_name_and_limit()})")
     if failures:
         raise AssertionError(f"phase 17: {failures}")
     return total
+
+
+P17C_NODES = 2  # one node a rank; 4 nodes would double every file
+P17C_ARGS = P15_ARGS + ["--nodes", str(P17C_NODES), "--topology", "ring", "--fused-gossip"]
+
+
+def _npz_layout(fname) -> dict:
+    """{leaf name: (shape, dtype)} of an ``.npz`` from its members' headers
+    (no leaf is read)."""
+    import zipfile
+
+    import numpy as np
+
+    out = {}
+    with zipfile.ZipFile(fname) as zf:
+        for name in zf.namelist():
+            with zf.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                shape, _, dtype = read(f)
+            out[name[:-len(".npy")]] = (tuple(shape), str(dtype))
+    return out
+
+
+def resume_on_ranks(cfg, total, failures: list) -> dict:
+    """17c: 2 nodes on 2 ranks, ``kq4b`` fused.  A: 4 rounds straight; B: 2
+    rounds with ``--checkpoint`` (rank 0 writes one file, gathering the
+    other rank's rows); C: ``--resume`` to 4; D: the same file resumed in
+    one process on the rolled backend (a hard link in a fresh directory),
+    to 4.  C's and D's losses of rounds 2-3 and the chunk digests of theta,
+    theta_hat and s after round 4 (C: each rank's rows; D: its whole
+    tensors) must equal A's; B's file has the leaves of the file a
+    one-process run writes (D's own), whole [2, ...]; the fused kernels
+    launch the chunk plan once a round on every rank and in one process."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    m = R = P17C_NODES
+    n_params = T.param_count(cfg)
+    # B's step-2 file beside C's step-4 file (theta, theta_hat, s: bf16) and
+    # one f32 model file, then D's step-4 file and model file in their place
+    need = 2 * 3 * m * 2 * n_params + 4 * n_params
+    base = max((Path(tempfile.gettempdir()), ROOT), key=lambda d: shutil.disk_usage(d).free)
+    free = shutil.disk_usage(base).free
+    log(f"[17c] disk under {base}: {free / 1e9:.1f} GB free, the checkpoints need "
+        f"{need / 1e9:.1f} GB")
+    if free < need * 1.05:
+        raise AssertionError(f"phase 17c: {free / 1e9:.1f} GB free under {base}, "
+                             f"{need / 1e9:.1f} GB needed")
+    n_enc = len(_chunk_sizes(cfg, m))
+    tmp = Path(tempfile.mkdtemp(prefix="p17c_", dir=base))
+    ck, dck = tmp / "ranks" / "run", tmp / "one" / "run"
+    ranks_argv = P17C_ARGS + ["--gossip-backend", "ppermute"]
+    runs = {"A": ranks_argv + ["--steps", "4"],
+            "B": ranks_argv + ["--steps", "2", "--checkpoint", str(ck)],
+            "C": ranks_argv + ["--steps", "4", "--checkpoint", str(ck), "--resume"]}
+    out = {}
+    try:
+        log(f"[17c] {R} ranks: launch/train.py {' '.join(ranks_argv)}: A --steps 4, B --steps 2 "
+            f"--checkpoint, C --steps 4 --resume, in the same processes")
+        t0 = time.perf_counter()
+        worlds = dict(zip(runs, p17_world("17c", list(runs.values()), R)))
+        out["world_seconds"] = time.perf_counter() - t0
+        step2 = Path(f"{ck}_00000002.npz")
+        layout_b = _npz_layout(step2)
+        for name in ("_00000004.npz", "_model.npz"):  # C's outputs: room for D's
+            Path(f"{ck}{name}").unlink()
+        dck.parent.mkdir()
+        os.link(step2, f"{dck}_00000002.npz")
+        recs = []
+
+        def wrap_step(step, run, state):
+            counts0 = _build.launch_counts()
+            new, aux = run()
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            recs.append({**_round_record(new, aux),
+                         "launches": {k: counts.get(k, 0) - counts0.get(k, 0)
+                                      for k in GOSSIP_KERNELS}})
+            return new, aux
+
+        log(f"[17c] D: launch/train.py {' '.join(P17C_ARGS)} --steps 4 --resume, one process, "
+            f"from a hard link to B's step-2 file")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        d_metrics = train.main(P17C_ARGS + ["--steps", "4", "--checkpoint", str(dck),
+                                            "--resume"], wrap_step=wrap_step)
+        torch.cuda.synchronize()
+        out["D_seconds"] = time.perf_counter() - t0
+        layout_d = _npz_layout(f"{dck}_00000004.npz")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b, c = (worlds[k] for k in "ABC")
+    # the file
+    whole = all(shape[0] == m for name, (shape, _) in layout_b.items()
+                if name.startswith(("theta|", "consensus|")))
+    log(f"[17c] B's file: {len(layout_b)} leaves, the names, shapes and dtypes of the "
+        f"one-process file (D's): {layout_b == layout_d}; theta and consensus leaves whole "
+        f"[{m}, ...]: {whole}")
+    if layout_b != layout_d or not whole:
+        diff = sorted(set(layout_b.items()) ^ set(layout_d.items()))[:6]
+        failures.append(f"17c: B's file is not the one-process file ({diff}; whole {whole})")
+    # the rounds
+    want_losses = [a[0]["rec"][i]["losses"] for i in (2, 3)]
+    want_dig = torch.cat([w["rec"][3]["digests"] for w in a], dim=1)
+    c_dig = torch.cat([w["rec"][-1]["digests"] for w in c], dim=1)
+    d_dig = recs[-1]["digests"]
+    starts = [w["start_step"] for w in c] + [d_metrics["start_step"]]
+    same = {"C losses": all([x["losses"] for x in w["rec"]] == want_losses for w in c),
+            "D losses": [x["losses"] for x in recs] == want_losses,
+            "C digests": bool(torch.equal(c_dig, want_dig)),
+            "D digests": bool(torch.equal(d_dig, want_dig)),
+            "rounds 2-3 of A equal across ranks": all(
+                [x["losses"] for x in w["rec"][2:]] == want_losses for w in a)}
+    log(f"[17c] C and D resumed at steps {starts}; against A (bit for bit): {same}")
+    if starts != [2] * (R + 1) or not all(same.values()):
+        failures.append(f"17c: resumed runs differ from the straight one: {same}, "
+                        f"start steps {starts}")
+    # the launches: fused encode and mix, once per encode of the chunk plan a round
+    zero = {k: 0 for k in GOSSIP_KERNELS}
+    expect = {**zero, "fused_encode": n_enc, "fused_mix": n_enc}
+    for label, ranks in (("A", a), ("B", b), ("C", c), ("D", [{"rec": recs}])):
+        for r, w in enumerate(ranks):
+            bad = [x["launches"] for x in w["rec"] if x["launches"] != expect]
+            if bad or not w["rec"]:
+                failures.append(f"17c {label} rank {r}: launches {bad[:1]} != {expect}")
+            for x in w["rec"]:
+                for k, v in x["launches"].items():
+                    total[k] = total.get(k, 0) + v
+    log(f"[17c] launches a round, every rank of A, B, C and D: {expect} "
+        f"({n_enc} encodes in the chunk plan)")
+    # the checkpoint I/O
+    io = {"B": [w["io"] for w in b], "C": [w["io"] for w in c],
+          "D": d_metrics["checkpoint_io"]}
+    for label in ("B", "C"):
+        for r, x in enumerate(io[label]):
+            log(f"[17c] {label} rank {r}: saves {[round(t, 2) for t in x['save_seconds']]} s of "
+                f"{[round(n / 1e9, 3) for n in x['save_bytes']]} GB (state file, model file); "
+                f"sent to rank 0 {[round(n / 1e9, 3) for n in x['gather_bytes']]} GB; restore "
+                f"{x['restore_seconds'] if x['restore_seconds'] is None else round(x['restore_seconds'], 2)} s")
+    x = io["D"]
+    log(f"[17c] D (one process): restore {x['restore_seconds']:.2f} s of "
+        f"{x['save_bytes'][0] / 1e9:.3f} GB (the size of its own state file); saves {[round(t, 2) for t in x['save_seconds']]} s "
+        f"of {[round(n / 1e9, 3) for n in x['save_bytes']]} GB")
+    out.update(io=io, start_steps=starts, same=same)
+    for label, ranks in (("A", a), ("B", b), ("C", c)):
+        _p17_log_rounds(f"17c {label}", ranks)
+    return out
+
 
 
 

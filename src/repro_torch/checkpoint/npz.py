@@ -23,17 +23,29 @@ key, ``rng``, which the port ignores): their states go under the port-only
 keys ``generator|gossip``, ``generator|dual``, ``generator|mask`` and
 ``generator|fault``, as uint8 arrays; a file without them leaves the
 generators as they are.
+
+On the ``ppermute`` backend each ``torch.distributed`` rank holds its rows
+of the node-stacked leaves (:func:`state_parts` declares which).  With the
+trainer's ``mesh`` every rank calls :func:`save_state`: rank 0 writes the
+one file a one-process run writes at that step, whole ``[m, ...]`` leaves,
+gathering each sharded leaf from the ranks as it writes it; and
+:func:`restore_state` reads each rank's rows of those leaves straight from
+the file.  So a file from either backend, or from the JAX package, resumes
+on either.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
 import warnings
+import zipfile
 
 import numpy as np
 import torch
 
+from repro_torch.core.exchange import WireMeter
 from repro_torch.core.faults import FaultState, WireBits
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import _to_tensor, params_from_jax
@@ -49,7 +61,10 @@ __all__ = [
     "restore_latest",
     "restore_state",
     "save_state",
+    "state_leaves",
+    "state_parts",
     "state_tree",
+    "gather_bytes_sent",
     "latest_step",
     "all_steps",
     "step_path",
@@ -87,16 +102,32 @@ def step_path(path: str, step: int) -> str:
     return f"{_strip_npz(path)}_{step:08d}.npz"
 
 
-def save(path: str, tree, step: int | None = None) -> str:
-    """Write ``tree`` (nested dicts / lists of tensors) to ``<path>[_<step>].npz``."""
-    payload = {name: _to_numpy(leaf) for name, leaf in _flatten(tree)}
-    fname = step_path(path, step) if step is not None else (
+def save(path: str, tree, step: int | None = None, *, mesh=None) -> str:
+    """Write ``tree`` (nested dicts / lists of tensors) to ``<path>[_<step>].npz``,
+    leaf by leaf.  On a ``mesh`` of several ranks ``tree`` is the same on
+    every rank: rank 0 writes it and the others wait until it is visible."""
+    return _write(_target(path, step), [(name, leaf, False) for name, leaf in _flatten(tree)],
+                  mesh)
+
+
+def _target(path: str, step: int | None) -> str:
+    return step_path(path, step) if step is not None else (
         path if path.endswith(".npz") else path + ".npz")
+
+
+def _write_npz(fname: str, items) -> None:
+    """Write ``(name, numpy array)`` pairs as an ``.npz`` -- a stored zip of
+    ``.npy`` members, as ``np.savez`` writes it -- each member as it arrives,
+    so host memory holds one leaf at a time; atomically: ``<file>.tmp``,
+    fsync, ``os.replace``, fsync of the directory."""
     os.makedirs(os.path.dirname(fname) or ".", exist_ok=True)
     tmp = fname + ".tmp"
     try:
         with open(tmp, "wb") as f:
-            np.savez(f, **payload)
+            with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+                for name, arr in items:
+                    with zf.open(name + ".npy", "w", force_zip64=True) as member:
+                        np.lib.format.write_array(member, np.asanyarray(arr), allow_pickle=False)
             f.flush()
             os.fsync(f.fileno())  # durable before it becomes visible
         os.replace(tmp, fname)
@@ -104,6 +135,72 @@ def save(path: str, tree, step: int | None = None) -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+#: bytes of sharded leaves this process sent to rank 0 (:func:`save_state`)
+gather_bytes_sent = WireMeter()
+
+# the status rank 0 broadcasts before each leaf and at the end of a write
+_NEXT, _FAILED, _WRITTEN = 1, 0, 2
+
+
+def _gather_rows(x: torch.Tensor, mesh) -> torch.Tensor | None:
+    """Every rank's ``[block, ...]`` rows of ``x`` on rank 0, as ``[m, ...]``
+    on the host (None elsewhere); the bytes travel as uint8."""
+    import torch.distributed as dist
+
+    src = x.detach().to("cpu").contiguous()
+    raw = src.reshape(-1).view(torch.uint8)
+    if mesh.rank != 0:
+        dist.gather(raw, None, dst=0, group=mesh.group)
+        gather_bytes_sent.count += raw.numel()
+        return None
+    whole = torch.empty((mesh.size,) + tuple(src.shape), dtype=src.dtype)
+    dist.gather(raw, list(whole.reshape(mesh.size, -1).view(torch.uint8).unbind(0)), dst=0,
+                group=mesh.group)
+    return whole.reshape((-1,) + tuple(src.shape[1:]))
+
+
+def _write(fname: str, leaves, mesh) -> str:
+    """Write ``(name, tensor, sharded)`` leaves to ``fname``: in one process
+    as they are; on a mesh of several ranks rank 0 writes, each sharded leaf
+    gathered from every rank's rows as it comes.  Before each leaf rank 0
+    broadcasts whether it is still writing, and at the end whether the file
+    is visible: a failed write raises on every rank, and no rank goes on
+    before the file is there."""
+    if mesh is None or mesh.size == 1:
+        _write_npz(fname, ((name, _to_numpy(x)) for name, x, _ in leaves))
+        return fname
+    import torch.distributed as dist
+
+    status = torch.zeros(1, dtype=torch.int32)
+
+    def tell(value=None) -> int:
+        if value is not None:
+            status.fill_(value)
+        dist.broadcast(status, 0, group=mesh.group)
+        return int(status)
+
+    if mesh.rank == 0:
+        def items():
+            for name, x, sharded in leaves:
+                tell(_NEXT)
+                yield name, _to_numpy(_gather_rows(x, mesh) if sharded else x)
+
+        try:
+            _write_npz(fname, items())
+        except Exception:
+            tell(_FAILED)
+            raise
+        tell(_WRITTEN)
+        return fname
+    for name, x, sharded in leaves:
+        if tell() != _NEXT:
+            raise RuntimeError(f"rank 0 failed to write {fname}; see its error")
+        if sharded:
+            _gather_rows(x, mesh)
+    if tell() != _WRITTEN:
+        raise RuntimeError(f"rank 0 failed to write {fname}; see its error")
     return fname
 
 
@@ -231,45 +328,110 @@ def _generators(state) -> dict:
                                   state.mask_generator, state.fault_generator)))
 
 
-def state_tree(state) -> dict:
-    """A trainer state as a nested tree under the reference's names; its
-    tensors are the state's own (no copies), the step counters fresh int32
-    scalars.  Holds no generator."""
-    opt = {"step": torch.tensor(state.opt.step, dtype=torch.int32)}
-    for name in ("mu", "nu"):
-        part = getattr(state.opt, name)
-        if part:
-            opt[name] = tree_unflatten(state.theta, list(part))
-    tree = {"step": torch.tensor(state.step, dtype=torch.int32), "theta": state.theta,
-            "lam": state.lam, "opt": opt}
+def state_parts(state, *, federated: bool = False) -> list[tuple[dict, bool]]:
+    """A trainer state under the reference's names, in the file's order, as
+    ``(subtree, sharded)`` parts: ``sharded`` says whether the part's leaves
+    carry the node axis, so that on the ``ppermute`` backend each rank holds
+    its ``[block, ...]`` rows of them -- theta (not a federated state's
+    server model), a per-node lambda ``[m, m]``, the optimizer moments and
+    the whole consensus state (theta_hat, s, GT's lanes and tracker, the
+    NeighborCache mirrors, the fault state and meters, all receiver-major
+    rows) -- or is the same on every rank -- the step counters, a vector
+    lambda ``[m]`` and theta_avg.  Declared here by position, never read
+    off a shape.  The tensors are the state's own (no copies), the step
+    counters fresh int32 scalars.  Holds no generator."""
+    moments = {name: tree_unflatten(state.theta, list(getattr(state.opt, name)))
+               for name in ("mu", "nu") if getattr(state.opt, name)}
+    parts = [({"step": torch.tensor(state.step, dtype=torch.int32)}, False),
+             ({"theta": state.theta}, not federated),
+             ({"lam": state.lam}, state.lam.ndim == 2),
+             ({"opt": {"step": torch.tensor(state.opt.step, dtype=torch.int32)}}, False)]
+    if moments:
+        parts.append(({"opt": moments}, True))
     cons = _consensus_tree(state.consensus)
     if cons:
-        tree["consensus"] = cons
+        parts.append(({"consensus": cons}, True))
     if state.theta_avg != ():
-        tree["theta_avg"] = state.theta_avg
+        parts.append(({"theta_avg": state.theta_avg}, False))
+    return parts
+
+
+def state_leaves(state, *, federated: bool = False):
+    """``(name, tensor, sharded)`` for every leaf of :func:`state_parts`."""
+    for tree, sharded in state_parts(state, federated=federated):
+        for name, leaf in _flatten(tree):
+            yield name, leaf, sharded
+
+
+def state_tree(state) -> dict:
+    """A trainer state as one nested tree under the reference's names (the
+    parts of :func:`state_parts`, merged)."""
+    tree: dict = {}
+    for part, _ in state_parts(state):
+        for key, sub in part.items():
+            tree[key] = {**tree[key], **sub} if key in tree else sub
     return tree
 
 
-def save_state(path: str, state, step: int | None = None) -> str:
+def save_state(path: str, state, step: int | None = None, *, mesh=None,
+               federated: bool = False) -> str:
     """Write a whole trainer state (see the module docstring), generator
-    states included, to ``<path>[_<step>].npz``."""
-    gens = {k: g.get_state() for k, g in _generators(state).items()}
-    return save(path, {**state_tree(state), "generator": gens}, step=step)
+    states included, to ``<path>[_<step>].npz``.  On a ``mesh`` of several
+    ranks (the ``ppermute`` backend) every rank calls it: rank 0 writes the
+    one file a one-process run writes, whole ``[m, ...]`` leaves, each
+    sharded leaf gathered from the ranks' rows as it is written, and the
+    replicated leaves and the generators from its own copy (every rank
+    draws the whole node axis, so they are the same on every rank)."""
+    gens = [(f"generator{_SEP}{k}", g.get_state(), False) for k, g in _generators(state).items()]
+    return _write(_target(path, step), [*state_leaves(state, federated=federated), *gens], mesh)
 
 
-def restore_state(fname: str, state):
+_HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
+            (2, 0): np.lib.format.read_array_header_2_0}
+
+
+def _read_leaf(zf: zipfile.ZipFile, key: str, rows: slice | None, total: int | None):
+    """Leaf ``key`` of an open ``.npz``, or only its rows ``rows`` of a
+    leading axis that must hold ``total`` of them: a stored C-order member
+    is read from the rows' offset, so host memory holds just those rows."""
+    with zf.open(key + ".npy") as member:
+        reader = _HEADERS.get(np.lib.format.read_magic(member))
+        shape, fortran, dtype = reader(member) if reader else ((), True, None)
+        if rows is not None and shape and shape[0] != total:
+            raise ValueError(f"{key}: {shape[0]} rows in the file, {total} expected")
+        if rows is None or fortran or dtype.hasobject:
+            member.seek(0)
+            arr = np.lib.format.read_array(member, allow_pickle=False)
+            return arr if rows is None else arr[rows]
+        row = math.prod(shape[1:]) * dtype.itemsize
+        member.seek(member.tell() + rows.start * row)
+        n = rows.stop - rows.start
+        data = member.read(n * row)
+        if len(data) != n * row:
+            raise ValueError(f"{key}: the member ends before its rows {rows}")
+        return np.frombuffer(data, dtype).reshape((n,) + tuple(shape[1:]))
+
+
+def restore_state(fname: str, state, *, mesh=None, federated: bool = False):
     """Fill ``state`` (a trainer state of the same structure, e.g. a fresh
     ``trainer.init``) from ``fname`` in place -- leaf by leaf, each copied
     into the live tensor, so neither a second copy of the state on the
     device nor the whole file in host memory is made -- and return it with
     the file's step counters.  Dtypes are cast to the template's; shapes
-    must match."""
-    with np.load(fname) as data:
-        names = set(data.files)
-        for key, dst in _flatten(state_tree(state)):
+    must match.  On a ``mesh`` of several ranks each rank reads its rows of
+    every sharded leaf (:func:`state_parts`) and the whole of the others;
+    the file is the one any run writes, whichever backend."""
+    sharded_rows = mesh is not None and mesh.size > 1
+    with zipfile.ZipFile(fname) as zf:
+        names = {n[:-len(".npy")] for n in zf.namelist() if n.endswith(".npy")}
+        for key, dst, sharded in state_leaves(state, federated=federated):
             if key not in names:
                 raise KeyError(f"checkpoint {fname} missing leaf {key!r}")
-            arr = data[key]
+            rows = total = None
+            if sharded and sharded_rows:
+                b = dst.shape[0]
+                rows, total = slice(mesh.rank * b, (mesh.rank + 1) * b), b * mesh.size
+            arr = _read_leaf(zf, key, rows, total)
             if arr.dtype.itemsize == 2 and (arr.dtype.kind == "V" or arr.dtype.name == "bfloat16"):
                 arr = arr.view(np.int16)
             if tuple(arr.shape) != tuple(dst.shape):
@@ -283,7 +445,9 @@ def restore_state(fname: str, state):
         for name, gen in _generators(state).items():
             key = f"generator{_SEP}{name}"
             if key in names:
-                gen.set_state(torch.from_numpy(np.array(data[key], np.uint8)))
-        step, opt_step = int(data["step"]), int(data[f"opt{_SEP}step"])
+                gen.set_state(torch.from_numpy(np.array(_read_leaf(zf, key, None, None),
+                                                        np.uint8)))
+        step = int(_read_leaf(zf, "step", None, None))
+        opt_step = int(_read_leaf(zf, f"opt{_SEP}step", None, None))
     return dataclasses.replace(state, step=step, opt=OptState(opt_step, state.opt.mu,
                                                               state.opt.nu))

@@ -16,11 +16,12 @@ cached union round with digests and resync; the lambda gossip rides the
 same faulted messages), and the ``ppermute`` backend (``mesh=``: each
 ``torch.distributed`` rank trains its block of the nodes, and only
 compressed payloads travel between neighbours; the lambda gossip rides the
-same sends).
+same sends).  :class:`ADGDA` is the reference's deprecated shim over it.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
@@ -40,10 +41,15 @@ from repro_torch.core.trainer import (
     LocalUpdate,
     LossFn,
     ProjectedAscent,
+    TrainerState,
 )
 from repro_torch.optim import adam, make_schedule, sgd
 
-__all__ = ["ADGDAConfig", "adgda_trainer"]
+__all__ = ["ADGDAConfig", "ADGDAState", "ADGDA", "adgda_trainer"]
+
+# Deprecated alias, as the reference's: the composed trainer's state replaced
+# the monolithic ADGDAState
+ADGDAState = TrainerState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,3 +184,22 @@ def adgda_trainer(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None
                                 consensus=consensus, prior=prior,
                                 track_average=config.track_average, config=config,
                                 device=device, mesh=mesh)
+
+
+class ADGDA(DecentralizedTrainer):
+    """Deprecated shim: the pre-refactor monolithic trainer's signature.
+
+    ``ADGDA(config, loss_fn, prior)`` composes a :class:`DecentralizedTrainer`
+    (see :func:`adgda_trainer`) on ``device``; ``init`` / ``step`` /
+    ``network_mean`` / ``bits_per_round`` behave identically.
+    """
+
+    def __init__(self, config: ADGDAConfig, loss_fn: LossFn, prior=None, *, device="cuda"):
+        warnings.warn(
+            "repro.core.ADGDA is deprecated; compose a trainer with "
+            "repro.core.adgda.adgda_trainer(config, loss_fn) instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        self._init_as(adgda_trainer(config, loss_fn, prior, device=device))
+        self.regularizer = dro.make_regularizer(config.regularizer)

@@ -12,12 +12,13 @@ All three are compositions of :class:`~repro_torch.core.trainer.DecentralizedTra
 and each takes ``gossip_backend="ppermute"`` with a ``mesh``: DR-DSGD's
 dense models then travel between graph neighbours on the ranks, DRFA's
 server average is one all-reduce of the ranks' partial sums.  The
-reference's deprecated ``DRDSGD`` / ``DRFA`` shim classes are not yet
-ported (see ROADMAP.md); the factories are what they wrap.
+reference's deprecated ``DRDSGD`` / ``DRFA`` shim classes wrap the
+factories, as there.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
@@ -30,10 +31,16 @@ from repro_torch.core.trainer import (
     KLClosedForm,
     LocalUpdate,
     SampledAscent,
+    TrainerState,
 )
 from repro_torch.optim import make_schedule, sgd
 
-__all__ = ["choco_sgd", "DRDSGDConfig", "drdsgd_trainer", "DRFAConfig", "drfa_trainer"]
+__all__ = ["choco_sgd", "DRDSGD", "DRDSGDConfig", "DRDSGDState", "drdsgd_trainer", "DRFA",
+           "DRFAConfig", "DRFAState", "drfa_trainer"]
+
+# Deprecated aliases, as the reference's: both baselines run on the shared state
+DRDSGDState = TrainerState
+DRFAState = TrainerState
 
 
 def choco_sgd(config: ADGDAConfig, loss_fn: LossFn, prior=None, *, mesh=None,
@@ -77,6 +84,19 @@ def drdsgd_trainer(config: DRDSGDConfig, loss_fn: LossFn, prior=None, *, mesh=No
         mesh=mesh)
 
 
+class DRDSGD(DecentralizedTrainer):
+    """Deprecated shim over :func:`drdsgd_trainer` (pre-refactor signature)."""
+
+    def __init__(self, config: DRDSGDConfig, loss_fn: LossFn, prior=None, *, device="cuda"):
+        warnings.warn(
+            "repro.core.DRDSGD is deprecated; use "
+            "repro.core.baselines.drdsgd_trainer(config, loss_fn) instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        self._init_as(drdsgd_trainer(config, loss_fn, prior, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class DRFAConfig:
     num_nodes: int = 8
@@ -109,3 +129,17 @@ def drfa_trainer(config: DRFAConfig, loss_fn: LossFn, prior=None, *, mesh=None,
                          node_axes=node_axes),
         prior=prior, track_average=config.track_average, config=config, device=device,
         mesh=mesh)
+
+
+class DRFA(DecentralizedTrainer):
+    """Deprecated shim over :func:`drfa_trainer` (pre-refactor signature)."""
+
+    def __init__(self, config: DRFAConfig, loss_fn: LossFn, prior=None, *, device="cuda"):
+        warnings.warn(
+            "repro.core.DRFA is deprecated; use "
+            "repro.core.baselines.drfa_trainer(config, loss_fn) instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        self._init_as(drfa_trainer(config, loss_fn, prior, device=device))
+        self.num_sampled = self.consensus.num_sampled

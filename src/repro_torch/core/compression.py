@@ -21,10 +21,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import f32_full
+from repro_torch.device import f32_full
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import unflatten
 
 __all__ = ["BlockTopK", "Compressor", "Identity", "RandomQuantization", "TopK",
-           "make_compressor"]
+           "make_compressor", "compress_pytree"]
 
 
 class Compressor:
@@ -218,3 +220,26 @@ def make_compressor(spec: str) -> Compressor:
     if spec.startswith("top"):
         return TopK(fraction=float(spec[3:]) / 100.0)
     raise ValueError(f"unknown compressor spec {spec!r}")
+
+
+def compress_pytree(compressor: Compressor, tree, generator: torch.Generator | None = None,
+                    noise=None):
+    """Apply Q leaf by leaf (each leaf one vector, no node axis): returns
+    Q(tree), dense, in the tree's structure.  Each leaf's uniforms, of
+    ``noise_shape(1, leaf.shape)``, are drawn from ``generator`` in leaf
+    order, or taken from ``noise`` (one array per leaf, in leaf order): the
+    reference splits one JAX key per leaf, so tests inject its draws."""
+    flat = tree_leaves(tree)
+    out = []
+    for i, leaf in enumerate(flat):
+        shape = compressor.noise_shape(1, tuple(leaf.shape))
+        xi = None
+        if shape is not None and noise is not None:
+            xi = torch.tensor(np.asarray(noise[i], np.float32), device=leaf.device).reshape(shape)
+        elif shape is not None:
+            if generator is None:
+                raise ValueError(f"{type(compressor).__name__} needs a generator or noise=")
+            xi = torch.rand(shape, generator=generator, device=leaf.device, dtype=torch.float32)
+        q = compressor.decode(compressor.encode(leaf[None], xi), tuple(leaf.shape), leaf.dtype)
+        out.append(q[0])
+    return unflatten(tree, out)

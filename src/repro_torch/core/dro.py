@@ -15,8 +15,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["project_simplex", "make_regularizer", "dual_gradient", "kl_closed_form_weights",
-           "Regularizer"]
+__all__ = ["project_simplex", "chi2_regularizer", "kl_regularizer", "make_regularizer",
+           "kl_closed_form_weights", "dual_gradient", "Regularizer"]
 
 
 def project_simplex(v: torch.Tensor) -> torch.Tensor:
@@ -72,10 +72,10 @@ def _kl_grad(lam, prior):
     return torch.where(lam > 0, -(torch.log(safe / prior) + 1.0), torch.zeros_like(lam))
 
 
-_REGS = {
-    "chi2": Regularizer("chi2", _chi2, _chi2_grad),
-    "kl": Regularizer("kl", _kl, _kl_grad),
-}
+chi2_regularizer = Regularizer("chi2", _chi2, _chi2_grad)
+kl_regularizer = Regularizer("kl", _kl, _kl_grad)
+
+_REGS = {"chi2": chi2_regularizer, "kl": kl_regularizer}
 
 
 def make_regularizer(name: str) -> Regularizer:

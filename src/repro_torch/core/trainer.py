@@ -1008,6 +1008,15 @@ class DecentralizedTrainer:
         self.config = config
         self.federated = consensus.federated
 
+    def _init_as(self, composed: "DecentralizedTrainer") -> None:
+        """Deprecated-shim helper: adopt a factory-built trainer's composition
+        wholesale, so the shims cannot drift from the factories field by field."""
+        DecentralizedTrainer.__init__(
+            self, composed.loss_fn, num_nodes=composed.num_nodes, local=composed.local,
+            dual=composed.dual, consensus=composed.consensus, prior=composed.prior,
+            track_average=composed.track_average, config=composed.config,
+            device=composed.device, mesh=composed.mesh)
+
     @property
     def topology(self) -> Topology | None:
         return getattr(self.consensus, "topology", None)

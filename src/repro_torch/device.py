@@ -1,4 +1,6 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and :func:`f32_full`, which
+lives here (not in ``kernels/ref.py``, which re-exports it) so that the
+modules ``kernels/ops.py`` imports need nothing of the ``kernels`` package."""
 from __future__ import annotations
 
 import torch
@@ -24,3 +26,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def f32_full(like: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` rounded to f32, shaped and placed like ``like``."""
+    return torch.full(like.shape, value, dtype=torch.float32, device=like.device)

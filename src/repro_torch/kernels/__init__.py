@@ -2,7 +2,35 @@
 decode (serving); quantize / dequantize, fused CHOCO round, block top-k
 (gossip): CUDA sources in ``csrc/``, each with a wrapper,
 a plain PyTorch version and a launch counter.  The model and the gossip
-layer call them through ``kernels/ops.py``."""
+layer call them through ``kernels/ops.py``, whose public wrappers this
+package exports, as the reference's does.  Importing builds nothing: each
+kernel is built with ``nvcc`` at its first launch on a card."""
 from repro_torch.kernels._build import COUNTERS, launch_counts, reset_launch_counts
+from repro_torch.kernels.ops import (
+    KernelBlockTopK,
+    KernelQuantization,
+    block_sparse_attention,
+    block_topk,
+    decode_attention_kernel,
+    dequantize,
+    flash_attention,
+    quantize,
+    quantize_kv,
+    sliding_window_attention,
+)
 
-__all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "COUNTERS",
+    "launch_counts",
+    "reset_launch_counts",
+    "KernelBlockTopK",
+    "KernelQuantization",
+    "block_sparse_attention",
+    "block_topk",
+    "decode_attention_kernel",
+    "dequantize",
+    "flash_attention",
+    "quantize",
+    "quantize_kv",
+    "sliding_window_attention",
+]

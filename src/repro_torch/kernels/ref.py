@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.device import f32_full  # noqa: F401  (its home is device.py: see there)
+
 NEG_INF = -1e30
 BISECT_ITERS = 20
 #: unit roundoff of bf16 (8 significant bits)
@@ -149,10 +151,6 @@ def tau_for(d: int, bits: int) -> float:
     lvl = float(1 << bits)
     return 1.0 + min(d / lvl**2, (d**0.5) / lvl)
 
-
-def f32_full(like: torch.Tensor, value: float) -> torch.Tensor:
-    """``value`` rounded to f32, shaped and placed like ``like``."""
-    return torch.full(like.shape, value, dtype=torch.float32, device=like.device)
 
 
 def encode_scale(norm: torch.Tensor, bits: int) -> torch.Tensor:

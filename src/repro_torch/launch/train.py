@@ -56,9 +56,22 @@ Rank r trains nodes ``[r * block, (r + 1) * block)`` on its rows of the
 node-stacked batch stream; rank 0 prints the log and writes
 ``--metrics-out``; every rank prints its mesh line, its bytes on the wire
 and its peak memory.  Without a launcher ``ppermute`` runs on a one-rank
-mesh (the reference's degenerate mesh).  ``--checkpoint`` / ``--resume``
-with ``ppermute`` raise: a sharded state file is not yet ported (see
-ROADMAP.md).
+mesh (the reference's degenerate mesh).
+
+Checkpoints on the ranks are the one-process run's files:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch qwen3-1.7b --nodes 4 --steps 4 \
+      --compressor kq4b --gossip-backend ppermute --checkpoint ckpt/run [--resume]
+
+``--checkpoint`` writes one state file per save, from rank 0, which
+gathers every rank's rows of each node-stacked leaf as it writes it
+(``checkpoint.save_state(..., mesh=)``); every rank takes the network mean
+and rank 0 writes ``<checkpoint>_model.npz``.  ``--resume`` reads each
+rank's rows: every rank tries the newest file, and a file counts only if it
+loaded on every rank, so all ranks resume at one step (or all start fresh)
+and fast-forward the token stream alike.  A state file from either backend,
+or the JAX package's ``TrainerState``, resumes on either.
 
 The batch is the reference's (:func:`make_batch`): the tokens, and for the
 encoder-decoder (whisper-small) all-zero ``frames``, for the VLM
@@ -96,7 +109,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import all_steps, restore_state, save, save_state, step_path
+from repro_torch.checkpoint import (
+    all_steps,
+    gather_bytes_sent,
+    restore_state,
+    save,
+    save_state,
+    step_path,
+)
 from repro_torch.configs import get_config
 from repro_torch.core import exchange
 from repro_torch.data import node_token_stream
@@ -212,25 +232,53 @@ def _fault_totals(cons, mesh=None) -> dict | None:
     return {"detected": int(counts[0]), "resyncs": int(counts[1]), "bits_max": float(top[0])}
 
 
-def _resume(trainer, params, args):
-    """(state, start step): the newest loadable checkpoint under
-    ``--checkpoint``, walking past unreadable files; a fresh state if none."""
+def _agree(ok: bool, mesh) -> bool:
+    """Whether ``ok`` holds on every rank (an all-reduce MIN on a mesh)."""
+    if mesh is None or mesh.size == 1:
+        return ok
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(ok)], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(flag)
+
+
+def _resume(trainer, params, args, mesh=None):
+    """(state, start step, seconds): the newest checkpoint under
+    ``--checkpoint`` that loads, walking past unreadable files; a fresh
+    state if none.  On a mesh every rank walks rank 0's list of steps and
+    takes a file only if it loaded on every rank, so all resume at one step
+    (or all start fresh)."""
+    lead = mesh is None or mesh.rank == 0
     state = trainer.init(params, seed=args.seed + 1)
     steps = all_steps(args.checkpoint)
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        box = [steps]
+        dist.broadcast_object_list(box, src=0, group=mesh.group)
+        steps = box[0]
     for step in reversed(steps):
         fname = step_path(args.checkpoint, step)
+        t0 = time.perf_counter()
+        err = None
         try:
-            t0 = time.perf_counter()
-            state = restore_state(fname, state)
+            state = restore_state(fname, state, mesh=mesh, federated=trainer.federated)
         except Exception as e:  # BadZipFile / KeyError / ValueError / OSError
-            print(f"checkpoint {fname} is unreadable ({type(e).__name__}: {e}); "
-                  f"falling back to the previous complete checkpoint", flush=True)
+            err = e
+        if not _agree(err is None, mesh):
+            if lead:
+                why = f"{type(err).__name__}: {err}" if err is not None else "on another rank"
+                print(f"checkpoint {fname} is unreadable ({why}); falling back to the previous "
+                      f"complete checkpoint", flush=True)
             continue
-        print(f"resumed full trainer state from step {step} "
-              f"({time.perf_counter() - t0:.2f} s)", flush=True)
-        return state, step, time.perf_counter() - t0
-    print(f"--resume: no loadable checkpoint under {args.checkpoint!r}; starting fresh",
-          flush=True)
+        seconds = time.perf_counter() - t0
+        if lead:
+            print(f"resumed full trainer state from step {step} ({seconds:.2f} s)", flush=True)
+        return state, step, seconds
+    if lead:
+        print(f"--resume: no loadable checkpoint under {args.checkpoint!r}; starting fresh",
+              flush=True)
     if steps:  # a failed restore may have written into the state: free it, start anew
         del state
         state = trainer.init(params, seed=args.seed + 1)
@@ -242,9 +290,6 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
     comp_name = args.compressor if compressor is None else repr(compressor)
     if args.resume and not args.checkpoint:
         raise SystemExit("--resume requires --checkpoint")
-    if args.gossip_backend == "ppermute" and (args.checkpoint or args.resume):
-        raise NotImplementedError("--checkpoint / --resume with --gossip-backend ppermute need "
-                                  "a sharded state file, not yet ported; see ROADMAP.md")
     dev = resolve_device(args.device)
     mesh, own_group = None, False
     if args.gossip_backend == "ppermute":
@@ -307,19 +352,22 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
     if lead:
         print(f"arch={cfg.name} params={n_params:,} nodes={args.nodes} "
               f"compressor={comp_name} topology={wire}", flush=True)
-    io = {"save_seconds": [], "save_bytes": [], "restore_seconds": None}
+    io = {"save_seconds": [], "save_bytes": [], "gather_bytes": [], "restore_seconds": None}
     start_step = 0
     if args.resume:
-        state, start_step, io["restore_seconds"] = _resume(trainer, params, args)
+        state, start_step, io["restore_seconds"] = _resume(trainer, params, args, mesh)
     else:
         state = trainer.init(params, seed=args.seed + 1)
     del params
 
     def checkpoint(fn, *a, **kw):
-        t0 = time.perf_counter()
-        fname = fn(*a, **kw)
+        """Save on every rank (rank 0 writes); the seconds, the file's bytes
+        and the bytes this rank sent to rank 0."""
+        t0, sent0 = time.perf_counter(), gather_bytes_sent.count
+        fname = fn(*a, mesh=mesh, **kw)
         io["save_seconds"].append(time.perf_counter() - t0)
         io["save_bytes"].append(os.path.getsize(fname))
+        io["gather_bytes"].append(gather_bytes_sent.count - sent0)
         return fname
 
     # one round takes local_steps x the per-node batch (K local updates)
@@ -367,8 +415,10 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
             )
         done = step + 1
         if args.checkpoint and done % args.checkpoint_every == 0 and done < args.steps:
-            fname = checkpoint(save_state, args.checkpoint, state, step=done)
-            print(f"checkpointed full trainer state to {fname}", flush=True)
+            fname = checkpoint(save_state, args.checkpoint, state, step=done,
+                               federated=trainer.federated)
+            if lead:
+                print(f"checkpointed full trainer state to {fname}", flush=True)
     if mesh is not None:
         print(f"rank {mesh.rank}: wire bytes sent per round {wire_bytes}", flush=True)
     if dev.type == "cuda":
@@ -377,10 +427,13 @@ def main(argv=None, *, wrap_step=None, compressor=None) -> dict:
               flush=True)
 
     if args.checkpoint:
-        fname = checkpoint(save_state, args.checkpoint, state, step=args.steps)
+        fname = checkpoint(save_state, args.checkpoint, state, step=args.steps,
+                           federated=trainer.federated)
         base = args.checkpoint[:-4] if args.checkpoint.endswith(".npz") else args.checkpoint
+        # the network mean is a collective on a mesh: every rank takes it, rank 0 writes
         model_file = checkpoint(save, base + "_model", trainer.network_mean(state))
-        print(f"saved final state to {fname}, consensus model to {model_file}", flush=True)
+        if lead:
+            print(f"saved final state to {fname}, consensus model to {model_file}", flush=True)
 
     metrics = {}
     if aux is not None:

@@ -17,7 +17,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import f32_full
+from repro_torch.device import f32_full
 
 Schedule = Callable[[int], float]
 

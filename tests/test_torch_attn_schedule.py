@@ -22,6 +22,7 @@ of kv tiles per query tile, computed in-kernel and written out on the host by
 Small sizes only (S <= 512, a few heads).  The CUDA kernels themselves are
 held to the plain versions on the card (``tests/test_torch_cuda.py``).
 """
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -31,10 +32,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import block_sparse as kbs
-from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels.flash_attention import MASK_BLOCKS, MASK_ELEM, MASK_NONE, TILE_K
 from repro_torch.kernels.ref import NEG_INF, block_sparse_mask, p_rounding_bound
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+# the submodules themselves: the package exports the ops wrappers of the same names
+kf = importlib.import_module("repro_torch.kernels.flash_attention")
 
 P = kbs.BlockSparsePattern
 LOG2E = 1.4426950408889634

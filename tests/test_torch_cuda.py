@@ -19,6 +19,7 @@ kernels, ``2**-8 * plain(|v|)``: those round P to bf16 once before the PV
 product on the tensor cores (``ref.p_rounding_bound``).
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -30,12 +31,10 @@ from repro_torch.core.topology import ring
 from repro_torch.kernels import _build
 from repro_torch.kernels import block_sparse as kbs
 from repro_torch.kernels import choco_fused as kc
-from repro_torch.kernels import quantize as kq
 from repro_torch.kernels import ops
 from repro_torch.kernels import topk as ktopk
 from repro_torch.kernels.ops import KernelBlockTopK, KernelQuantization
 from repro_torch.kernels import decode as kd
-from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import sliding_window as ksw
 from repro_torch.kernels.ref import (encode_scale, f32_full, p_rounding_bound, quantize_kv_ref,
                                      tau_for)
@@ -44,6 +43,10 @@ from repro_torch.launch import serve, train, train_serve
 from repro_torch.models import transformer as T
 from repro_torch.serving import (BatchedProbe, ClassifierEngine, EvalRequest, FleetNode,
                                  HotReloader, Request, ServeEngine)
+
+# the submodules themselves: the package exports the ops wrappers of the same names
+kf = importlib.import_module("repro_torch.kernels.flash_attention")
+kq = importlib.import_module("repro_torch.kernels.quantize")
 
 pytestmark = pytest.mark.cuda
 

@@ -474,6 +474,15 @@ def test_train_cli_on_two_ranks_equals_the_rolled_run(tmp_path):
 
 
 def test_train_cli_refuses_checkpoints_on_the_ranks(tmp_path):
-    with pytest.raises(NotImplementedError, match="sharded.*ROADMAP"):
-        ttrain.main(CLI + ["--gossip-backend", "ppermute", "--checkpoint",
-                           str(tmp_path / "ckpt")])
+    """``--resume`` without ``--checkpoint`` exits on every rank under the
+    launcher, before any rank joins the group (the checkpointed run on the
+    ranks is ``test_torch_resume_dist.py``'s)."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "repro_torch.launch.train", *CLI, "--gossip-backend", "ppermute",
+           "--resume"]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=120, env=env,
+                         cwd=tmp_path)
+    assert run.returncode != 0
+    assert (run.stdout + run.stderr).count("--resume requires --checkpoint") >= 2

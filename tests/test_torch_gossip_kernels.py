@@ -15,6 +15,8 @@ order on both sides.  The JAX side is compiled with
 difference in f32 inside a fusion, where the reference's semantics (and
 PyTorch) round it to bf16.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,9 +30,11 @@ from repro.kernels.quantize import dequantize_pallas, quantize_pallas
 from repro_torch.kernels import _build
 from repro_torch.kernels import choco_fused as kc
 from repro_torch.kernels import ops
-from repro_torch.kernels import quantize as kq
 from repro_torch.kernels import ref
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+# the submodules themselves: the package exports the ops wrappers of the same names
+kq = importlib.import_module("repro_torch.kernels.quantize")
 
 LANES = 128
 

@@ -8,6 +8,8 @@ pure-jnp oracles stand in.  Tolerances: f32 ``atol 2e-5, rtol 1e-4`` (the
 same math in another summation order); int8 values exactly, scales to 1e-7
 relative.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,11 +18,13 @@ import jax.numpy as jnp
 from repro.kernels.ref import decode_attention_ref, flash_attention_ref, quantize_kv_ref
 from repro.kernels.sliding_window import sliding_window_attention_pallas
 from repro_torch.kernels import decode as kd
-from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import ops
 from repro_torch.kernels import sliding_window as ksw
 from repro_torch.kernels.ref import quantize_kv_ref as quantize_kv_torch
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+# the submodules themselves: the package exports the ops wrappers of the same names
+kf = importlib.import_module("repro_torch.kernels.flash_attention")
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 

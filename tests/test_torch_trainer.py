@@ -131,8 +131,7 @@ def test_train_cli_flags_run_on_the_cpu(flag, tmp_path, reference_metric_keys):
     (["--fault-spec", "drop"], ValueError, "bad fault-spec item"),
     (["--fused-gossip", "--compressor", "kq4b", "--dropout", "0.1", "--fault-spec", "drop:0.1"],
      ValueError, "fused encode has no participation mask"),
-    (["--gossip-backend", "ppermute", "--checkpoint", "ckpt"], NotImplementedError,
-     "sharded state file.*ROADMAP"),
+    (["--gossip-backend", "ppermute", "--resume"], SystemExit, "--resume requires --checkpoint"),
     (["--fused-gossip", "--compressor", "kq4b", "--dropout", "0.1"], ValueError,
      "masked path"),
 ], ids=["malformed-fault-spec", "fused-dropout-faults", "ppermute", "fused-dropout"])

@@ -1,11 +1,12 @@
 """Spawned ``torch.distributed`` worlds for the port's multi-process wire
-tests (CPU, gloo).  Not a test module: ``test_torch_exchange_dist.py``
-imports it, and each rank process imports it again without JAX.
+tests (CPU, gloo).  Not a test module: ``test_torch_exchange_dist.py`` and
+``test_torch_resume_dist.py`` import it, and each rank process imports it
+again without JAX.
 
-``run_world(section, ranks, tmp_path)`` starts ``ranks`` processes, each
-joining one gloo group through a ``file://`` store under ``tmp_path`` with
-one torch thread, runs ``SECTIONS[section](mesh)`` there and saves what it
-returns; the parent gets one result per rank.  A world that outlives its
+``run_world(section, ranks, tmp_path, args=())`` starts ``ranks`` processes,
+each joining one gloo group through a ``file://`` store under ``tmp_path``
+with one torch thread, runs ``SECTIONS[section](mesh, *args)`` there and
+saves what it returns; the parent gets one result per rank.  A world that outlives its
 timeout is killed and fails the test.
 """
 from __future__ import annotations
@@ -379,12 +380,207 @@ def _section_trainer(mesh):
     return out
 
 
+# ------------------------------------------------- resume on the ranks
+# AD-GDA on the logistic model with every kind of state a file holds: SGD
+# momentum or Adam's two moments, a per-node lambda, theta_avg, GT's lanes,
+# the cached round's mirrors, the fault state and its meter, and all four
+# generators.  4 nodes on 2 ranks; the faulted wire as phase 17b of
+# chip_smoke.py, 3 nodes on 3 ranks.
+RESUME_WIRES = {
+    "kq4b-packed": dict(compressor="kq4b", optimizer="adam"),
+    "kq4b-fused": dict(compressor="kq4b", fused_gossip=True, momentum=0.9),
+    "gt": dict(consensus="gt", momentum=0.9),
+    "rr+drop": dict(topology_schedule="roundrobin:ring,torus", dropout=0.25, momentum=0.9),
+    "faulted": dict(compressor="kq4b", fused_gossip=True, fault_spec=FAULT_SPECS["fused"],
+                    momentum=0.9),
+}
+# the time-varying wire on the ranks keeps mirrors that the rolled masked
+# round has no use for (as the reference's backends do): its files hold
+# different leaves, so only the other wires cross between backends
+CROSSING = ("kq4b-packed", "kq4b-fused", "gt", "faulted")
+# the JAX package's trainer state (f32; gradient tracking, 2 local steps,
+# momentum, the running average) on reduced qwen3-1.7b, as in
+# test_torch_trainer_state.py
+JAX_STATE = dict(compressor="none", consensus="gt", local_steps=2, momentum=0.9,
+                 track_average=True)
+JAX_NODES = 4
+
+
+def resume_trainer(mesh, wire: str):
+    from repro_torch.core import ADGDAConfig, adgda_trainer
+
+    m = 3 if wire == "faulted" else 4
+    cfg = {**dict(num_nodes=m, topology="ring", compressor="q4b", alpha=0.05, eta_theta=0.3,
+                  eta_lambda=0.2), **RESUME_WIRES[wire]}
+    if mesh is not None:
+        cfg["gossip_backend"] = "ppermute"
+    tr = adgda_trainer(ADGDAConfig(**cfg), logistic_loss, mesh=mesh, device="cpu")
+    batch = {k: torch.from_numpy(v[tr.rows]) for k, v in logistic_data(m).items()}
+    return tr, batch
+
+
+def _fresh(tr, seed: int = 42):
+    return tr.init({"w": torch.zeros(20, 3), "b": torch.zeros(3)}, seed=seed)
+
+
+def _rounds(tr, state, batch, n: int):
+    for _ in range(n):
+        state, _ = tr.step(state, batch)
+    return state
+
+
+def _generators(state) -> dict:
+    return {"gossip": state.generator, "dual": state.dual_generator,
+            "mask": state.mask_generator, "fault": state.fault_generator}
+
+
+def state_record(state) -> dict:
+    """Every leaf a state file holds, under its name (the rank's rows of the
+    sharded ones), with each generator's state."""
+    from repro_torch.checkpoint import state_leaves
+
+    out = {name: x.clone() for name, x, _ in state_leaves(state)}
+    out.update({f"generator|{k}": g.get_state() for k, g in _generators(state).items()})
+    return out
+
+
+def replicated_agree(state, mesh) -> bool:
+    """Whether every leaf a file takes from rank 0's copy alone -- the
+    replicated leaves (theta_avg, the step counters) and the generators --
+    is the same on every rank (True in one process)."""
+    if mesh is None or mesh.size == 1:
+        return True
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import state_leaves
+
+    same = True
+    mine = [x for _, x, sharded in state_leaves(state) if not sharded]
+    mine += [g.get_state() for g in _generators(state).values()]
+    for x in mine:
+        x = x.detach().cpu().contiguous()
+        got = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(got, x)
+        same &= all(torch.equal(g, x) for g in got)
+    return same
+
+
+def resume_from(mesh, wire: str, fname: str) -> dict:
+    """``fname`` restored into a fresh state (other generator seeds: they
+    must come from the file) on ``mesh``, then 2 more rounds."""
+    from repro_torch.checkpoint import restore_state
+
+    tr, batch = resume_trainer(mesh, wire)
+    state = restore_state(fname, _fresh(tr, seed=5), mesh=mesh)
+    return state_record(_rounds(tr, state, batch, 2))
+
+
+def resume_case(mesh, wire: str, root: str) -> dict:
+    """A: 4 rounds straight.  B: 2 rounds, then saved at step 2 to
+    ``<root>/<wire>-<backend>``, with the check that what rank 0 alone
+    writes is the same on every rank.  C: B's file resumed.  X: the rolled
+    backend's step-2 file resumed on the ranks, for a wire whose files
+    cross."""
+    from repro_torch.checkpoint import save_state, step_path
+
+    tr, batch = resume_trainer(mesh, wire)
+    out = {"A": state_record(_rounds(tr, _fresh(tr), batch, 4))}
+    b = _rounds(tr, _fresh(tr), batch, 2)
+    out["agree"] = replicated_agree(b, mesh)
+    out["file"] = save_state(f"{root}/{wire}-{'rolled' if mesh is None else 'ranks'}", b,
+                             step=2, mesh=mesh)
+    del b
+    out["C"] = resume_from(mesh, wire, out["file"])
+    if mesh is not None and wire in CROSSING:
+        out["X"] = resume_from(mesh, wire, step_path(f"{root}/{wire}-rolled", 2))
+    return out
+
+
+def torn_case(mesh, root: str) -> dict:
+    """Files at steps 1, 2 and 3 on the ranks; step 3 fails to load on the
+    last rank only, step 2 is torn on every rank: ``launch/train.py``'s
+    resume takes step 1 on every rank."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import save_state, step_path
+    from repro_torch.launch import train
+
+    tr, batch = resume_trainer(mesh, "kq4b-packed")
+    ck = f"{root}/torn/run"
+    state, records = _fresh(tr), {}
+    for step in (1, 2, 3):
+        state = _rounds(tr, state, batch, 1)
+        save_state(ck, state, step=step, mesh=mesh)
+        records[step] = state_record(state)
+    if mesh.rank == 0:
+        with open(step_path(ck, 2), "r+b") as f:
+            f.truncate(f.seek(0, 2) // 2)
+    dist.barrier()
+    restore = train.restore_state
+
+    def flaky(fname, state, **kw):
+        if fname == step_path(ck, 3) and mesh.rank == mesh.size - 1:
+            raise OSError("an unreadable file on this rank alone")
+        return restore(fname, state, **kw)
+
+    train.restore_state = flaky
+    try:
+        args = argparse.Namespace(checkpoint=ck, seed=41)  # init's seed: 42, as _fresh
+        got, step, _ = train._resume(tr, {"w": torch.zeros(20, 3), "b": torch.zeros(3)}, args,
+                                     mesh)
+    finally:
+        train.restore_state = restore
+    return {"step": step, "state": state_record(got), "want": records[1]}
+
+
+def jax_file_case(mesh, root: str) -> dict:
+    """The JAX package's step-2 trainer-state file (``<root>/jax_state``)
+    restored on ``mesh`` (or in one process) and run 2 more rounds on the
+    token stream's rounds 2 and 3."""
+    from repro_torch.checkpoint import restore_state, step_path
+    from repro_torch.configs import get_config
+    from repro_torch.data import node_token_stream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3-1.7b").reduced(layers=2, d_model=64)
+    tr = steps.make_trainer(cfg, JAX_NODES, device="cpu", mesh=mesh,
+                            gossip_backend="rolled" if mesh is None else "ppermute",
+                            **JAX_STATE)
+    template = T.init_train_params(cfg, seed=0, device="cpu")
+    state = restore_state(step_path(f"{root}/jax_state", 2), tr.init(template, seed=0),
+                          mesh=mesh)
+    stream = node_token_stream(JAX_NODES, 4, 8, cfg.vocab_size, seed=0)
+    for _ in range(2):
+        next(stream)
+    aux = []
+    for _ in range(2):
+        tokens = torch.from_numpy(next(stream)[tr.rows])
+        state, a = tr.step(state, {"tokens": tokens})
+        aux.append({k: a[k] for k in ("losses", "lambda_mean")})
+    return {"state": state_record(state), "aux": aux}
+
+
+def _section_resume(mesh, root):
+    out = {w: resume_case(mesh, w, root) for w in RESUME_WIRES if w != "faulted"}
+    out["torn"] = torn_case(mesh, root)
+    out["jax"] = jax_file_case(mesh, root)
+    return out
+
+
+def _section_resume_faulted(mesh, root):
+    return {"faulted": resume_case(mesh, "faulted", root)}
+
+
 SECTIONS = {"static": _section_static, "time_varying": _section_time_varying,
-            "faulted": _section_faulted, "trainer": _section_trainer}
+            "faulted": _section_faulted, "trainer": _section_trainer,
+            "resume": _section_resume, "resume_faulted": _section_resume_faulted}
 
 
 # ------------------------------------------------------------- the world
-def _rank_main(section: str, rank: int, ranks: int, store: str, out: str) -> None:
+def _rank_main(section: str, rank: int, ranks: int, store: str, out: str, args: tuple) -> None:
     torch.set_num_threads(1)
     try:
         import torch.distributed as dist
@@ -393,7 +589,7 @@ def _rank_main(section: str, rank: int, ranks: int, store: str, out: str) -> Non
 
         mesh = make_node_mesh(ranks, device="cpu", init_method=f"file://{store}", rank=rank,
                               world_size=ranks, log=False)
-        result = SECTIONS[section](mesh)
+        result = SECTIONS[section](mesh, *args)
         torch.save(result, f"{out}/{rank}.pt")
         dist.barrier()
         dist.destroy_process_group()
@@ -402,17 +598,18 @@ def _rank_main(section: str, rank: int, ranks: int, store: str, out: str) -> Non
         raise
 
 
-def run_world(section: str, ranks: int, tmp_path: Path, timeout: float = 120.0) -> list:
-    """Run ``SECTIONS[section]`` on ``ranks`` spawned gloo ranks; returns each
-    rank's result.  Kills the world and raises if it outlives ``timeout``
-    seconds or any rank fails."""
+def run_world(section: str, ranks: int, tmp_path: Path, timeout: float = 120.0,
+              args: tuple = ()) -> list:
+    """Run ``SECTIONS[section](mesh, *args)`` on ``ranks`` spawned gloo ranks;
+    returns each rank's result.  Kills the world and raises if it outlives
+    ``timeout`` seconds or any rank fails."""
     out = tmp_path / f"world-{section}"
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(section, r, ranks, str(out / "store"), str(out)))
+                         args=(section, r, ranks, str(out / "store"), str(out), args))
              for r in range(ranks)]
     for p in procs:
         p.start()
