@@ -152,19 +152,21 @@ Phases (any failure exits non-zero):
      plain path (routing pinned), the engine at 12 slots with flash, int8
      KV and block-sparse (first tokens >= 9/12, launches exact); peak
      memory and ms/token.
- 19. the zoo's other families trained through ``launch/train.py`` at full
-     width with ``kq4b`` fused gossip, one model on the card at a time
-     (P19_RUNS: whisper-small, internvl2-2b, mamba2-1.3b, recurrentgemma-2b
-     at full depth, deepseek-moe-16b on 6 of its 28 layers), 2 rounds on a
-     ring; whisper's ``frames`` and internvl2's ``patches`` seeded N(0,
-     0.02²) stubs (``serve.stub_inputs``: the reference's zeros do not
-     train); deepseek-moe-16b and mamba2-1.3b also packed (quantize /
+ 19. the zoo trained through ``launch/train.py`` at full width with
+     ``kq4b`` fused gossip, one model on the card at a time (P19_RUNS:
+     whisper-small, internvl2-2b, mamba2-1.3b, recurrentgemma-2b and
+     qwen3-4b at full depth, deepseek-moe-16b on 6 of its 28 layers,
+     granite-20b on 7 of 52, command-r-35b on 2 of 40,
+     llama4-scout-17b-a16e on 1 of 48), 2 rounds on a ring; whisper's
+     ``frames`` and internvl2's ``patches`` seeded N(0, 0.02²) stubs
+     (``serve.stub_inputs``: the reference's zeros do not train);
+     deepseek-moe-16b, mamba2-1.3b and llama4 also packed (quantize /
      dequantize), step-0 losses equal to the fused run's and step 1 within
-     1e-3 (deepseek's routing pinned to the fused run's); per run launches
-     = the chunk plan x the rounds, bits = ``payload_bits`` + the dual's,
+     1e-3 (the MoE routing pinned to the fused run's); per run launches =
+     the chunk plan x the rounds, bits = ``payload_bits`` + the dual's,
      finite losses and consensus error, peak memory at most 70 GiB; round 1
-     of the fused run profiled for deepseek-moe-16b, mamba2-1.3b and
-     recurrentgemma-2b (kernel ms by section).
+     of the fused run profiled for deepseek-moe-16b, mamba2-1.3b,
+     recurrentgemma-2b, command-r-35b and llama4 (kernel ms by section).
 Phases 4-6, 9 and 11-19 are the main paths: launch counters are zeroed
 just before each run and read just after, and every kernel the run goes
 through must have launched (in phases 11, 13, 14 and 18, once per attention
@@ -4366,11 +4368,23 @@ def resume_on_ranks(cfg, total, failures: list) -> dict:
 # on one card: 6 of its 28 layers (one dense, five MoE, 3.2 B) on 2 nodes.
 # internvl2-2b's 256 patches need --seq 512 (256 positions of text);
 # mamba2-1.3b's --seq is one SSD chunk.
+# The dense configs and llama4 on 2 nodes, each at the depth whose peak at
+# ~8.35 B a parameter a node (θ, θ̂ and s in bf16, one node's gradient,
+# activations, the round's f32 temporaries: phase 19's measured rate) stays
+# under P19_PEAK_GIB:
+# qwen3-4b whole (4.02 B), granite-20b on CUT_LAYERS (2.96 B), command-r-35b
+# on 2 of 40 (3.51 B, its tied [256000, 8192] embedding the largest leaf of
+# any run) and llama4-scout-17b-a16e on 1 of 48 (3.24 B; every layer is the
+# same MoE layer, its expert leaves [16, 5120, 8192]).
 P19_RUNS = (("whisper-small", 4, 128, None), ("internvl2-2b", 3, 512, None),
             ("mamba2-1.3b", 4, 256, None), ("recurrentgemma-2b", 3, 128, None),
-            ("deepseek-moe-16b", 2, 128, 6))
-P19_PACKED = ("deepseek-moe-16b", "mamba2-1.3b")  # leaves new to the chunk plan
-P19_PROFILED = ("deepseek-moe-16b", "mamba2-1.3b", "recurrentgemma-2b")
+            ("deepseek-moe-16b", 2, 128, 6), ("qwen3-4b", 2, 128, None),
+            ("granite-20b", 2, 128, CUT_LAYERS), ("command-r-35b", 2, 128, 2),
+            (LLAMA4, 2, 128, 1))
+# leaves and routing new to the chunk plan
+P19_PACKED = ("deepseek-moe-16b", "mamba2-1.3b", LLAMA4)
+P19_PROFILED = ("deepseek-moe-16b", "mamba2-1.3b", "recurrentgemma-2b", "command-r-35b",
+                LLAMA4)
 P19_ARGS = ["--batch-per-node", "4", "--topology", "ring", "--compressor", "kq4b",
             "--steps", "2", "--log-every", "1"]
 P19_PEAK_GIB = 70.0
