@@ -56,6 +56,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.compression import Compressor, Identity
 from repro_torch.core.topology import Topology, masked_metropolis
 from repro_torch.kernels.choco_fused import dtype_scalar
@@ -228,21 +229,26 @@ def _round_leaf(leaf, hat, s, xi, topology, gamma, compressor, use_packed, use_f
     """One CHOCO round for a single stacked leaf [m, ...]; returns new
     (theta, hat, s) tensors."""
     if use_fused:
-        return compressor.fused_round(leaf, hat, s, xi, topology, gamma)
+        with tracing.span("gossip.fused"):
+            return compressor.fused_round(leaf, hat, s, xi, topology, gamma)
     inner_shape, dtype = tuple(leaf.shape[1:]), leaf.dtype
     # averaging step (uses the *old* public variables), in the leaf dtype
     theta_new = leaf + (s - hat) * dtype_scalar(gamma, dtype)
     resid = (theta_new - hat).float()
     if isinstance(compressor, Identity):
         q_self = resid
-        mixed = _mix_leaf(q_self, topology)
-    else:
-        payload = compressor.encode(resid, xi)
-        q_self = compressor.decode(payload, inner_shape, torch.float32)
-        if use_packed:
-            mixed = _mix_payload(compressor, payload, inner_shape, torch.float32, topology)
-        else:
+        with tracing.span("gossip.mix"):
             mixed = _mix_leaf(q_self, topology)
+    else:
+        with tracing.span("gossip.encode"):
+            payload = compressor.encode(resid, xi)
+        with tracing.span("gossip.decode"):
+            q_self = compressor.decode(payload, inner_shape, torch.float32)
+        with tracing.span("gossip.mix"):
+            if use_packed:
+                mixed = _mix_payload(compressor, payload, inner_shape, torch.float32, topology)
+            else:
+                mixed = _mix_leaf(q_self, topology)
     hat_new = (hat.float() + q_self).to(hat.dtype)
     s_new = (s.float() + mixed).to(s.dtype)
     return theta_new, hat_new, s_new
@@ -260,10 +266,14 @@ def _round_leaves(leaves, hat_leaves, s_leaves, draw, round_one, block_scan_elem
         else:
             parts = zip(range(plan[1]), *(_chunk_views(x, plan) for x in (leaf, hat, s)))
         for ci, lc, hc, sc in parts:
-            xi = draw(li, ci, tuple(lc.shape[1:]))
-            out = round_one(lc.contiguous(), hc.contiguous(), sc.contiguous(), xi)
-            for dst, src in zip((lc, hc, sc), out):
-                dst.copy_(src)
+            with tracing.span("gossip.noise"):
+                xi = draw(li, ci, tuple(lc.shape[1:]))
+            with tracing.span("gossip.copy"):
+                args = (lc.contiguous(), hc.contiguous(), sc.contiguous())
+            out = round_one(*args, xi)
+            with tracing.span("gossip.copy"):
+                for dst, src in zip((lc, hc, sc), out):
+                    dst.copy_(src)
 
 
 def noise_draw(compressor: Compressor, leaves, generator: torch.Generator | None,

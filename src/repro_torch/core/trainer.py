@@ -61,8 +61,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from repro_torch import tracing
 from repro_torch.core import dro, wire
 from repro_torch.core.compression import Compressor, Identity
 from repro_torch.core.faults import FaultEvents, WireBits, parse_fault_spec, sample_events
@@ -185,9 +185,11 @@ class LocalUpdate:
         for i in range(m):
             params_i = [leaf[i].detach().requires_grad_(True) for leaf in flat]
             batch_i = tree_map(lambda b: b[i], batch)
-            loss = loss_fn(unflatten(theta, params_i), batch_i, None)
-            for j, g in enumerate(torch.autograd.grad(loss, params_i)):
-                grads[j][i] = g
+            with tracing.span("oracle.forward"):
+                loss = loss_fn(unflatten(theta, params_i), batch_i, None)
+            with tracing.span("oracle.backward"):
+                for j, g in enumerate(torch.autograd.grad(loss, params_i)):
+                    grads[j][i] = g
             losses.append(loss.detach().float())
         return torch.stack(losses), grads
 
@@ -217,12 +219,12 @@ class LocalUpdate:
         flat = tree_leaves(theta)
         if self.local_steps > 1:
             return self._local_steps(loss_fn, theta, flat, opt_state, batch, weights_fn)
-        with record_function("forward_backward"):
+        with tracing.span("forward_backward"):
             if self.microbatches > 1:
                 losses, grads = self._microbatched(loss_fn, theta, batch)
             else:
                 losses, grads = self._oracle(loss_fn, theta, batch)
-        with record_function("optimizer"):
+        with tracing.span("optimizer"):
             opt_state = self.optimizer.apply_(flat, grads, opt_state, weights_fn(losses))
         return opt_state, losses
 
@@ -230,10 +232,10 @@ class LocalUpdate:
         K, round_step = self.local_steps, opt_state.step
         losses_k = []
         for k in range(K):
-            with record_function("forward_backward"):
+            with tracing.span("forward_backward"):
                 losses, grads = self._oracle(
                     loss_fn, theta, _batch_slice(batch, k, K, self.batch_layout))
-            with record_function("optimizer"):
+            with tracing.span("optimizer"):
                 inner = OptState(round_step, opt_state.mu, opt_state.nu)
                 opt_state = self.optimizer.apply_(flat, grads, inner, weights_fn(losses))
             del grads
@@ -1112,6 +1114,10 @@ class DecentralizedTrainer:
         noise, the participation mask, the dual's client sample and the
         wire's fault draw ([n_ops, m] uniforms; a pair for gradient
         tracking's two lanes) in place of draws."""
+        with tracing.span("round", device=self.device):
+            return self._step(state, batch, noise, mask, sampled, fault_u)
+
+    def _step(self, state: TrainerState, batch: Any, noise, mask, sampled, fault_u):
         schedule = self.schedule
         needs_mask = schedule is not None and schedule.dropout_rate > 0
         faulted = getattr(self.consensus, "faults", None) is not None
@@ -1153,10 +1159,10 @@ class DecentralizedTrainer:
             for x, old in zip(flat + moments, saved):
                 x.index_copy_(0, rows, old)
             del saved
-        with record_function("dual"):
+        with tracing.span("dual"):
             lam_new = self.dual.update(state.lam, losses, ctx, mixing=mixing, mask=mask_dev,
                                        step=state.step, events=dual_events, rows=node_rows)
-        with record_function("consensus"):
+        with tracing.span("consensus"):
             theta_new, cons_new = self.consensus.mix(
                 theta, state.consensus, state.generator, ctx, step=state.step, mask=mask_dev,
                 mixing=mixing, noise=noise, theta_prev=theta_prev, events=events)
@@ -1181,7 +1187,7 @@ class DecentralizedTrainer:
             "eta_theta": eta,
         }
         if not self.federated:
-            with record_function("consensus_err"):
+            with tracing.span("consensus_err"):
                 aux["consensus_err"] = _consensus_error(theta_new, self.mesh)
         if mask is not None:
             aux["participation"] = mask

@@ -30,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp
 
 
@@ -117,25 +118,38 @@ def apply_moe(params, x: torch.Tensor, cfg, *, per_row: bool = False):
     xg = x.reshape(1, B * S, d) if not per_row else x
     G, T, _ = xg.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    r = route(params, xg, cfg)
+    # each section's span marks its tensors (under the profiler only) so that
+    # its backward runs inside ``<section>.backward``
+    with tracing.span("moe.route") as sec:
+        r = route(params, sec.input(xg), cfg)
+        r["gate_slot"], r["aux"] = sec.output(r["gate_slot"], r["aux"])
     C = r["capacity"]
 
-    x_pad = torch.cat([xg, torch.zeros(G, 1, d, dtype=x.dtype, device=x.device)], 1)
-    eb = x_pad[torch.arange(G, device=x.device)[:, None, None], r["src_tok"]]  # [G, E, C, d]
-    eb = eb.transpose(0, 1).reshape(E, G * C, d)
-    h = F.silu(torch.bmm(eb, params["w_gate"])) * torch.bmm(eb, params["w_up"])
-    yb = torch.bmm(h, params["w_down"]).reshape(E, G, C, d).transpose(0, 1)  # [G, E, C, d]
-    weighted = (yb * r["gate_slot"][..., None].to(yb.dtype)).reshape(G, E * C, d)
+    with tracing.span("moe.dispatch") as sec:
+        xs = sec.input(xg)
+        x_pad = torch.cat([xs, torch.zeros(G, 1, d, dtype=x.dtype, device=x.device)], 1)
+        eb = x_pad[torch.arange(G, device=x.device)[:, None, None], r["src_tok"]]  # [G, E, C, d]
+        eb = sec.output(eb.transpose(0, 1).reshape(E, G * C, d))
+    with tracing.span("moe.experts") as sec:
+        eb = sec.input(eb)
+        h = F.silu(torch.bmm(eb, params["w_gate"])) * torch.bmm(eb, params["w_up"])
+        yb = torch.bmm(h, params["w_down"]).reshape(E, G, C, d).transpose(0, 1)  # [G, E, C, d]
+        yb = sec.output(yb)
 
-    # combine: each token's kept slots in ascending expert order
-    by_expert = torch.argsort(r["expert_idx"], dim=-1)  # top-k ids are distinct
-    slots = torch.gather(r["slot"], 2, by_expert)
-    kept = torch.gather(r["kept"], 2, by_expert)
-    y = torch.zeros(G, T, d, dtype=x.dtype, device=x.device)
-    for k in range(K):
-        w = torch.gather(weighted, 1, slots[..., k, None].expand(G, T, d))
-        y = torch.where(kept[..., k, None], y + w, y)
-    y = y.reshape(B, S, d)
+    with tracing.span("moe.combine") as sec:
+        yb, gate_slot = sec.input(yb, r["gate_slot"])
+        weighted = (yb * gate_slot[..., None].to(yb.dtype)).reshape(G, E * C, d)
+        # each token's kept slots in ascending expert order
+        by_expert = torch.argsort(r["expert_idx"], dim=-1)  # top-k ids are distinct
+        slots = torch.gather(r["slot"], 2, by_expert)
+        kept = torch.gather(r["kept"], 2, by_expert)
+        y = torch.zeros(G, T, d, dtype=x.dtype, device=x.device)
+        for k in range(K):
+            w = torch.gather(weighted, 1, slots[..., k, None].expand(G, T, d))
+            y = torch.where(kept[..., k, None], y + w, y)
+        y = sec.output(y.reshape(B, S, d))
     if "shared" in params:
-        y = y + apply_mlp(params["shared"], x.reshape(B * S, d)).reshape(B, S, d)
+        with tracing.span("moe.shared") as sec:
+            shared = apply_mlp(params["shared"], sec.input(x).reshape(B * S, d))
+            y = y + sec.output(shared.reshape(B, S, d))
     return y, r["aux"].sum()
