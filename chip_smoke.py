@@ -30,7 +30,9 @@ Phases (any failure exits non-zero):
      (attention, block-sparse attention included, at the serving shapes;
      quantize, dequantize, fused encode (and its digest variant at the
      faulted round's 3 nodes), fused mix and block top-k at qwen3-1.7b's
-     largest gossip chunk, outputs exactly equal);
+     largest gossip chunk, outputs exactly equal; the MoE dispatch and its
+     backward at deepseek-moe-16b's B4 x S2048 node, exactly equal, with
+     the gradient's gap to autograd's gather they replace);
   3. full-width qwen3-1.7b (random seeded weights): prefill + 16 decode steps
      with ``attn_kernel="flash"`` and ``"block_sparse"`` against
      ``attn_kernel=None``;
@@ -1764,6 +1766,100 @@ def check_gossip_kernels(dev) -> dict:
     if failures:
         raise AssertionError(f"gossip kernels disagree with their plain versions: {failures}")
     return records
+
+
+def check_moe_dispatch(dev) -> dict:
+    """The MoE dispatch kernels against their plain versions, bit for bit,
+    and against autograd's pad-row gather they replace, at deepseek-moe-16b's
+    B4 x S2048 node (T 8192, E 64, C 960, K 6, d 2048, bf16; a random
+    router): the forward equal, the gradient's gap in bf16 steps; the time
+    of a forward and a backward, against the plain versions and the gather."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.models import moe
+
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    T, d, bf = 8192, cfg.d_model, torch.bfloat16
+    failures: list[str] = []
+
+    def make_x():
+        return torch.randn(1, T, d, generator=gen, device=dev).to(bf)
+
+    x = make_x()
+    router = torch.randn(d, cfg.num_experts, generator=gen, device=dev) * d**-0.5
+    r = moe.route({"router": router}, x, cfg)
+    src, slots, kept = r["src_tok"], r["slot_by_expert"], r["kept_by_expert"]
+    E, C = src.shape[1:]
+    K = slots.shape[-1]
+    eb = kmd.dispatch(x, src)
+    _exact(f"moe_dispatch [1,{T},{d}] -> [{E},{C},{d}] bf16", eb, kmd.moe_dispatch_plain(x, src),
+           failures)
+    grad = torch.randn(eb.shape, generator=gen, device=dev).to(bf)
+    gx = kmd.dispatch_backward(grad, slots, kept)
+    _exact(f"moe_dispatch_backward [{E},{C},{d}] -> [1,{T},{d}] bf16", gx,
+           kmd.moe_dispatch_backward_plain(grad, slots, kept), failures)
+
+    def gather(xr, g):  # the dispatch before the kernels (autograd), forward and backward
+        xr.grad = None
+        kmd.moe_dispatch_plain(xr, src).backward(g)
+
+    xr = x.clone().requires_grad_()
+    gather(xr, grad)
+    old = xr.grad
+    a, b = gx.float(), old.float()
+
+    def steps(ref):  # one bf16 step (ulp) at |ref|
+        return torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+
+    gap = (a - b).abs()
+    mass = kmd.moe_dispatch_backward_plain(grad.float().abs(), slots, kept)
+    log(f"  gradient against autograd's index_put_ backward of the gather: bit-equal "
+        f"{bool(torch.equal(gx, old))}; {int((gap > 0).sum())} of {gap.numel()} elements "
+        f"differ, the largest by {float((gap / steps(torch.maximum(a.abs(), b.abs()))).max()):.0f} "
+        f"bf16 steps of the larger value, {float((gap / steps(mass)).max()):.2f} of the sum of "
+        f"|g_k| (kept slots {int(kept.sum())}, empty {int((src == T).sum())}, dropped "
+        f"{int((~kept).sum())})")
+    del xr, old, a, b, gap, mass
+
+    n_kept = int(kept.sum())
+    fwd_bytes = n_kept * d * 2 + E * C * d * 2 + E * C * 8
+    bwd_bytes = n_kept * d * 2 + T * d * 2 + T * K * 9
+    b_ms, b_by = bound(n_kept * d, fwd_bytes + bwd_bytes, "bfloat16")
+    sets = [(make_x(), grad) for _ in range(4)]  # x 32 MB a copy; grad 252 MB
+
+    def kernels(xs, g):
+        kmd.dispatch(xs, src)
+        kmd.dispatch_backward(g, slots, kept)
+
+    def plain(xs, g):
+        kmd.moe_dispatch_plain(xs, src)
+        kmd.moe_dispatch_backward_plain(g, slots, kept)
+
+    lib_sets = [(xs.clone().requires_grad_(), g) for xs, g in sets]
+    fwd_ms = time_ms(lambda xs, g: kmd.dispatch(xs, src), sets, 20)
+    bwd_ms = time_ms(lambda xs, g: kmd.dispatch_backward(g, slots, kept), sets, 20)
+    rec = dict(
+        name="moe_dispatch", route="cuda", source="src/repro_torch/csrc/moe_dispatch.cu",
+        replaces="none (the reference's XLA gather)", max_abs_err=0.0, ms=fwd_ms + bwd_ms,
+        plain_ms=time_ms(plain, sets, 5), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(gather, lib_sets, 5), device_ms=device_ms(kernels, sets, 10),
+        library_device_ms=device_ms(gather, lib_sets, 3),
+        shape=f"T{T} E{E} C{C} K{K} d{d} bf16, forward + backward")
+    log(f"  time moe_dispatch [{rec['shape']}]: forward {fwd_ms:.4f} + backward {bwd_ms:.4f} "
+        f"= {rec['ms']:.4f} ms per call ({b_ms / rec['ms']:.1%} of the bound), device "
+        f"{rec['device_ms']:.4f} ms ({b_ms / rec['device_ms']:.1%}), plain "
+        f"{rec['plain_ms']:.4f} ms, library (autograd gather) {rec['library_ms']:.4f} ms per call, "
+        f"{rec['library_device_ms']:.4f} device, bound {b_ms:.4f} ms ({b_by}; forward "
+        f"{fwd_bytes / PEAK_BYTES * 1e3:.4f}, backward {bwd_bytes / PEAK_BYTES * 1e3:.4f})")
+    del sets, lib_sets, eb, gx, grad, x
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"moe dispatch kernels disagree with their plain versions: "
+                             f"{failures}")
+    return {"moe_dispatch": rec}
 
 
 def check_block_topk(dev) -> dict:
@@ -4608,7 +4704,7 @@ def main(argv=None) -> int:
         log("[2] kernels against their plain versions")
         out = check_kernels(dev)
         for check in (check_block_sparse, check_wide_shapes, check_gossip_kernels,
-                      check_block_topk):
+                      check_block_topk, check_moe_dispatch):
             out.update(check(dev))
         return out
 

@@ -37,6 +37,7 @@ SOURCES = {
     "choco_fused": "choco_fused.cu",
     "block_topk": "block_topk.cu",
     "block_sparse_attn": "block_sparse_attn.cu",
+    "moe_dispatch": "moe_dispatch.cu",
 }
 #: flags of one library on top of NVCC_FLAGS: the compression kernels must
 #: round exactly as their plain versions, so no FMA contraction there

@@ -9,8 +9,9 @@ sort / gather scheme:
      first ``C`` of its tokens in token order);
   3. tokens past the capacity ``C = max(8, roundup8(ceil(cf * T * k / E)))``
      are dropped (GShard);
-  4. tokens gathered into an ``[E, C, d]`` buffer (empty slots read a zero
-     pad row) and the experts run as three batched products;
+  4. tokens gathered into an ``[E, C, d]`` buffer (empty slots zero) by
+     ``kernels/moe_dispatch.py``, whose backward sums each token's kept
+     slots, and the experts run as three batched products;
   5. each token adds its kept slot outputs, gate-weighted, in ascending
      expert order into a zero of ``x.dtype``, as the reference's sequential
      scatter-add does (no atomics: two runs give the same bits), plus the
@@ -21,7 +22,8 @@ capacity of that row's tokens: the reference engine decodes one slot per
 ``vmap`` lane, so each slot's router sees ``T = 1``, and the port's batched
 decode must drop exactly what that drops (nothing).  The reference computes
 the router and the expert products outside any Pallas kernel, so plain
-PyTorch is the port.
+PyTorch is the port, but for the dispatch: a CUDA kernel each way
+(``kernels/moe_dispatch.py``; why, in ``csrc/moe_dispatch.cu``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tracing
+from repro_torch.kernels.moe_dispatch import moe_dispatch
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp
 
 
@@ -70,8 +73,11 @@ def route(params, x: torch.Tensor, cfg) -> dict:
     [G, E] (assignments per expert, dropped ones included), ``src_tok``
     [G, E, C] (the token in each slot; ``T`` for an empty slot),
     ``gate_slot`` [G, E, C] f32, ``slot`` / ``kept`` [G, T, K] (each
-    assignment's flat slot ``e * C + c`` and whether it is within capacity)
-    and ``aux`` [G] (the Switch load-balance loss ``E * sum(me * ce)``).
+    assignment's flat slot ``e * C + c`` and whether it is within capacity),
+    the same in ascending expert order, ``slot_by_expert`` /
+    ``kept_by_expert`` (the order the dispatch's backward and the combine
+    sum a token's slots in), and ``aux`` [G] (the Switch load-balance loss
+    ``E * sum(me * ce)``).
     """
     G, T, _ = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
@@ -103,8 +109,11 @@ def route(params, x: torch.Tensor, cfg) -> dict:
     rank = rank - torch.gather(starts, 1, flat_e)
     kept = (rank < C).reshape(G, T, K)
     slot = (flat_e * C + torch.clamp(rank, max=C - 1)).reshape(G, T, K)
+    by_expert = torch.argsort(expert_idx, dim=-1)  # top-k ids are distinct
     return dict(expert_idx=expert_idx, gates=gate_vals, counts=counts, src_tok=src_tok,
-                gate_slot=gate_slot, slot=slot, kept=kept, aux=aux, capacity=C)
+                gate_slot=gate_slot, slot=slot, kept=kept,
+                slot_by_expert=torch.gather(slot, 2, by_expert),
+                kept_by_expert=torch.gather(kept, 2, by_expert), aux=aux, capacity=C)
 
 
 def apply_moe(params, x: torch.Tensor, cfg, *, per_row: bool = False):
@@ -125,11 +134,9 @@ def apply_moe(params, x: torch.Tensor, cfg, *, per_row: bool = False):
         r["gate_slot"], r["aux"] = sec.output(r["gate_slot"], r["aux"])
     C = r["capacity"]
 
+    slots, kept = r["slot_by_expert"], r["kept_by_expert"]
     with tracing.span("moe.dispatch") as sec:
-        xs = sec.input(xg)
-        x_pad = torch.cat([xs, torch.zeros(G, 1, d, dtype=x.dtype, device=x.device)], 1)
-        eb = x_pad[torch.arange(G, device=x.device)[:, None, None], r["src_tok"]]  # [G, E, C, d]
-        eb = sec.output(eb.transpose(0, 1).reshape(E, G * C, d))
+        eb = sec.output(moe_dispatch(sec.input(xg), r["src_tok"], slots, kept))  # [E, G*C, d]
     with tracing.span("moe.experts") as sec:
         eb = sec.input(eb)
         h = F.silu(torch.bmm(eb, params["w_gate"])) * torch.bmm(eb, params["w_up"])
@@ -140,9 +147,6 @@ def apply_moe(params, x: torch.Tensor, cfg, *, per_row: bool = False):
         yb, gate_slot = sec.input(yb, r["gate_slot"])
         weighted = (yb * gate_slot[..., None].to(yb.dtype)).reshape(G, E * C, d)
         # each token's kept slots in ascending expert order
-        by_expert = torch.argsort(r["expert_idx"], dim=-1)  # top-k ids are distinct
-        slots = torch.gather(r["slot"], 2, by_expert)
-        kept = torch.gather(r["kept"], 2, by_expert)
         y = torch.zeros(G, T, d, dtype=x.dtype, device=x.device)
         for k in range(K):
             w = torch.gather(weighted, 1, slots[..., k, None].expand(G, T, d))

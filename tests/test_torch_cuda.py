@@ -2,8 +2,9 @@
 reduced model and engine with the kernels against the plain path, the
 gossip kernels (quantize, dequantize, fused encode, fused mix, block top-k)
 against their plain versions bit for bit, alone and inside a trainer round,
-and the serving fleet on the kernels (its --no-fastpath twin, a hot
-reload, the classifier engine).
+the MoE dispatch kernels against their plain versions bit for bit and
+against the autograd gather they replace, and the serving fleet on the
+kernels (its --no-fastpath twin, a hot reload, the classifier engine).
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX (the card's machine has none); run it there with
@@ -35,11 +36,13 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import topk as ktopk
 from repro_torch.kernels.ops import KernelBlockTopK, KernelQuantization
 from repro_torch.kernels import decode as kd
+from repro_torch.kernels import moe_dispatch as kmd
 from repro_torch.kernels import sliding_window as ksw
 from repro_torch.kernels.ref import (encode_scale, f32_full, p_rounding_bound, quantize_kv_ref,
                                      tau_for)
 from repro_torch.checkpoint import save, step_path
 from repro_torch.launch import serve, train, train_serve
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.serving import (BatchedProbe, ClassifierEngine, EvalRequest, FleetNode,
                                  HotReloader, Request, ServeEngine)
@@ -905,3 +908,106 @@ def test_classifier_engine_on_the_card(cuda):
         q = probe.probe(params, step=3)
         assert q["a"]["acc"] == float((want[:5] == y[:5]).mean()) and probe.probe_forwards == 1
         assert probe.probe(params, step=3) is q and probe.probe_forwards == 1
+
+
+# ------------------------------------------------------------ MoE dispatch
+#: (arch, G, T): deepseek-moe-16b's B4 x S2048 node (E 64, C 960, K 6, d
+#: 2048), llama4-scout-17b-a16e (E 16, K 1, d 5120) and a per-row decode tick
+#: of 12 slots (T 1, C 8)
+MOE_SHAPES = [("deepseek-moe-16b", 1, 8192), ("llama4-scout-17b-a16e", 1, 2048),
+              ("deepseek-moe-16b", 12, 1)]
+
+
+def _moe_routing(arch, G, Tn, dtype, device, seed=0):
+    """x [G, T, d] and its routing by a random router at the config's widths."""
+    cfg = get_config(arch)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(G, Tn, cfg.d_model, generator=g, device=device).to(dtype)
+    router = torch.randn(cfg.d_model, cfg.num_experts, generator=g, device=device)
+    return x, moe.route({"router": router * cfg.d_model**-0.5}, x, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch,G,Tn", MOE_SHAPES)
+def test_moe_dispatch_kernels_match_plain_bit_for_bit(cuda, arch, G, Tn, dtype):
+    x, r = _moe_routing(arch, G, Tn, dtype, cuda)
+    slots, kept = r["slot_by_expert"], r["kept_by_expert"]
+    E, C = r["src_tok"].shape[1:]
+    before = (kmd.dispatch_launches.count, kmd.backward_launches.count)
+    eb = kmd.dispatch(x, r["src_tok"])
+    assert eb.shape == (E, G * C, x.shape[-1])
+    assert torch.equal(eb, kmd.moe_dispatch_plain(x, r["src_tok"]))
+    grad = torch.randn(eb.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+    gx = kmd.dispatch_backward(grad, slots, kept)
+    assert torch.equal(gx, kmd.moe_dispatch_backward_plain(grad, slots, kept))
+    assert (kmd.dispatch_launches.count, kmd.backward_launches.count) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_dispatch_gradient_against_the_autograd_gather(cuda, dtype):
+    """At deepseek-moe-16b's B4 x S2048 shape the forward equals the pad-row
+    gather under autograd (the plain forward, as ``apply_moe`` ran it
+    before the op) bit for bit, and so does the gradient in f32.  In bf16 autograd's
+    ``index_put_`` rounds to bf16 after each of a token's K adds, the kernel
+    once after an f32 sum: each of the K - 1 extra roundings is at most half
+    a bf16 step of a partial sum, so the two lie within K * 2**-8 * sum|g_k|."""
+    x, r = _moe_routing("deepseek-moe-16b", 1, 8192, dtype, cuda)
+    slots, kept = r["slot_by_expert"], r["kept_by_expert"]
+    xo = x.clone().requires_grad_()
+    old = kmd.moe_dispatch_plain(xo, r["src_tok"])
+    grad = torch.randn(old.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                       device=cuda).to(dtype)
+    old.backward(grad)
+    xn = x.clone().requires_grad_()
+    new = kmd.moe_dispatch(xn, r["src_tok"], slots, kept)
+    new.backward(grad)
+    assert torch.equal(new, old)
+    if dtype == torch.float32:
+        assert torch.equal(xn.grad, xo.grad)
+    else:
+        K = slots.shape[-1]
+        mass = kmd.moe_dispatch_backward_plain(grad.float().abs(), slots, kept)
+        gap = (xn.grad.float() - xo.grad.float()).abs()
+        assert bool((gap <= K * 2.0**-8 * mass).all())
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_moe_layer_launches_one_dispatch_each_way(cuda, per_row):
+    """apply_moe launches one dispatch, and its backward one gather-sum; a
+    forward without a gradient (serving's per-row decode) the dispatch only."""
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(experts=8), dtype="bfloat16")
+    params = moe.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    x = torch.randn(3, 16, cfg.d_model, device=cuda).to(torch.bfloat16)
+    _build.reset_launch_counts()
+    if per_row:
+        with torch.no_grad():
+            moe.apply_moe(params, x, cfg, per_row=True)
+    else:
+        y, aux = moe.apply_moe(params, x.requires_grad_(), cfg)
+        (y.float().sum() + aux).backward()
+    counts = _build.launch_counts()
+    assert (counts["moe_dispatch"], counts["moe_dispatch_backward"]) == (1, 0 if per_row else 1)
+
+
+def test_moe_dispatch_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, r = _moe_routing("deepseek-moe-16b", 1, 64, torch.bfloat16, cuda)
+    slots, kept = r["slot_by_expert"], r["kept_by_expert"]
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        kmd.dispatch(x.half(), r["src_tok"])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kmd.dispatch(x[..., :12].contiguous(), r["src_tok"])
+    with pytest.raises(TypeError, match="int64"):
+        kmd.dispatch(x, r["src_tok"].int())
+    with pytest.raises(ValueError, match="aligned"):
+        kmd.dispatch(x.reshape(-1)[4:4 + 63 * x.shape[-1]].view(1, 63, -1), r["src_tok"])
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kmd.dispatch(x, r["src_tok"].cpu())
+    grad = torch.zeros(kmd.dispatch(x, r["src_tok"]).shape, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        kmd.dispatch_backward(grad.double(), slots, kept)
+    with pytest.raises(ValueError, match="slots a token"):
+        kmd.dispatch_backward(grad, slots.repeat(1, 1, 6), kept.repeat(1, 1, 6))
+    with pytest.raises(ValueError, match="kept"):
+        kmd.dispatch_backward(grad, slots, kept.int())

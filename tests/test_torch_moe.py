@@ -9,7 +9,11 @@ the same math, with f32 sums of 256 products in another order, ~1e-6
 apart); the aux loss to ``1e-6``.  The decode case holds the port's batched ``decode_step``,
 which routes each row on its own, against the JAX model decoded one slot per
 ``jax.vmap`` lane, as the reference engine decodes, to the model tolerance
-of ``tests/test_torch_archs.py`` (``1e-4``).
+of ``tests/test_torch_archs.py`` (``1e-4``).  The input gradient of the
+layer is held to the reference's as its output, relative to the largest
+gradient entry.  The dispatch op (``kernels/moe_dispatch.py``) is held to
+the autograd gather it replaces bit for bit in f32 (the same f32 adds in
+the same ascending expert order), and to ``gradcheck`` in float64.
 """
 import dataclasses
 
@@ -23,6 +27,7 @@ from repro.configs import get_config as jax_config
 from repro.models import moe as JM
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as torch_config
+from repro_torch.kernels import moe_dispatch as KD
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -72,9 +77,17 @@ def test_apply_moe_matches_jax(experts, cf, shape):
     jp, tp = _moe_params(jcfg, tcfg)
     x = np.random.default_rng(experts).standard_normal((*shape, jcfg.d_model)).astype(np.float32)
     jy, jaux = JM.apply_moe(jp, jnp.asarray(x), jcfg)
-    ty, taux = TM.apply_moe(tp, torch.from_numpy(x), tcfg)
-    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+    xt = torch.from_numpy(x).requires_grad_()
+    ty, taux = TM.apply_moe(tp, xt, tcfg)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(taux.detach()), float(jaux), rtol=1e-6)
+    # the input gradient of a fixed projection of the output, through the
+    # router, the dispatch's backward, the experts and the combine
+    w = np.random.default_rng(experts + 1).standard_normal(x.shape).astype(np.float32)
+    jgx = jax.grad(lambda v: jnp.sum(JM.apply_moe(jp, v, jcfg)[0] * w))(jnp.asarray(x))
+    (ty * torch.from_numpy(w)).sum().backward()
+    scale = float(np.abs(np.asarray(jgx)).max())
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=1e-5, atol=1e-5 * scale)
 
     T = shape[0] * shape[1]
     idx, counts, src_tok = _jax_route(jp, jnp.asarray(x.reshape(T, -1)), jcfg)
@@ -87,6 +100,75 @@ def test_apply_moe_matches_jax(experts, cf, shape):
     assert r["capacity"] == JM.capacity_for(T, jcfg) == src_tok.shape[1]
     dropped = int((~kept).sum())
     assert (dropped > 0) == (cf < 1.0), dropped
+
+
+def _routing(K, experts, cf, shape, per_row, seed=0):
+    """Routing of a [B, S, d] input by a reduced config with top-``K`` of
+    ``experts`` at capacity factor ``cf``, skewed towards the higher expert
+    ids (a constant feature the router weighs in ascending order), so that
+    some experts' slots stay empty: (x as routed [G, T, d], route())."""
+    _, tcfg = _cfgs(experts, capacity_factor=cf, experts_per_token=K)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, tcfg.d_model, generator=gen)
+    x[..., 0] = 2.0
+    router = torch.randn(tcfg.d_model, experts, generator=gen) / tcfg.d_model**0.5
+    router[0] = torch.linspace(-1.5, 1.5, experts)
+    xg = x if per_row else x.reshape(1, -1, tcfg.d_model)
+    return xg, TM.route({"router": router}, xg, tcfg)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("K,experts,cf,drops", [
+    (6, 8, 4.0, False),   # deepseek's top-6, a capacity past any expert's load
+    (6, 8, 0.5, True),    # capacity below the popular experts' load: assignments drop
+    (1, 4, 4.0, False),   # llama4's top-1
+    (1, 4, 0.5, True),
+])
+def test_dispatch_plain_equals_the_autograd_gather_bit_for_bit(per_row, K, experts, cf, drops):
+    """Forward and input gradient of the dispatch op on the CPU (its plain
+    versions) equal the pad-row gather under autograd (the plain forward,
+    as ``apply_moe`` ran it before the op: its backward is ``index_put_``'s
+    accumulate), bit for bit in f32, with empty slots and with and without
+    dropped assignments."""
+    xg, r = _routing(K, experts, cf, (3, 40), per_row)
+    G, T, d = xg.shape
+    src_tok, slots, kept = r["src_tok"], r["slot_by_expert"], r["kept_by_expert"]
+    assert bool((src_tok == T).any())
+    assert bool((~kept).any()) == drops
+    g = torch.randn(experts, G * r["capacity"], d, generator=torch.Generator().manual_seed(1))
+
+    x_old = xg.clone().requires_grad_()
+    old = KD.moe_dispatch_plain(x_old, src_tok)
+    old.backward(g)
+    x_new = xg.clone().requires_grad_()
+    new = KD.moe_dispatch(x_new, src_tok, slots, kept)
+    new.backward(g)
+    assert torch.equal(new, old)
+    assert torch.equal(x_new.grad, x_old.grad)
+    # the expert-ordered maps are route()'s top-k ones sorted by expert id
+    by_expert = torch.argsort(r["expert_idx"], dim=-1)
+    assert torch.equal(slots, torch.gather(r["slot"], 2, by_expert))
+    assert torch.equal(kept, torch.gather(r["kept"], 2, by_expert))
+    assert bool((torch.diff(torch.gather(r["expert_idx"], 2, by_expert), dim=-1) > 0).all())
+
+
+def test_dispatch_backward_sums_in_f32_and_rounds_once():
+    """In bf16 the plain backward sums a token's kept slots in f32 and
+    rounds once: the f32 sum of the bf16 rows, cast."""
+    xg, r = _routing(6, 8, 0.5, (2, 24), False)
+    g = torch.randn(8, r["capacity"], xg.shape[-1]).to(torch.bfloat16)
+    got = KD.moe_dispatch_backward_plain(g, r["slot_by_expert"], r["kept_by_expert"])
+    want = KD.moe_dispatch_backward_plain(g.float(), r["slot_by_expert"], r["kept_by_expert"])
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def test_dispatch_gradcheck_float64():
+    xg, r = _routing(3, 4, 0.75, (2, 5), True)
+    x = xg[..., :8].double().requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda v: KD.moe_dispatch(v, r["src_tok"], r["slot_by_expert"], r["kept_by_expert"]),
+        (x,))
 
 
 def test_combine_is_deterministic_and_in_expert_order():

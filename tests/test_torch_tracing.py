@@ -106,7 +106,8 @@ def test_moe_sections_inside_the_oracle(moe_events):
 
 
 def test_dispatch_gather_backward_inside_dispatch_backward(moe_events):
-    index_bwd = _named(moe_events, "IndexBackward0")
+    # the dispatch op's backward (kernels/moe_dispatch.py), once a node
+    index_bwd = _named(moe_events, "MoEDispatchBackward")
     dispatch_bwd = _named(moe_events, "moe.dispatch.backward")
     assert len(index_bwd) == M
     assert all(_inside(s, dispatch_bwd) for s in index_bwd)

@@ -6,6 +6,8 @@ from the root of a checkout, on a machine with a CUDA card.  The cell's
 trainer and batches are made as ``portbench/harness.py`` makes them, and its
 checked rounds run first.  Then:
 
+0. the kernels' launches in one round (``kernels.launch_counts``, the
+   wrappers that launched);
 1. the recorder alone: the host time of a round's six coarse spans with
    nothing inside them, the recorder on and off (``tracing.enabled``);
 2. rounds with the recorder on and off, in alternating blocks of
@@ -72,7 +74,7 @@ def main(argv=None) -> int:
 
     from portbench import data, harness, spec
     from portbench.reference import seeds
-    from repro_torch import tracing
+    from repro_torch import kernels, tracing
 
     if not torch.cuda.is_available():
         print("trace_cost: needs a CUDA card", file=sys.stderr)
@@ -90,6 +92,12 @@ def main(argv=None) -> int:
         state, _ = trainer.step(state, b)
     sync()
     out = {"workload": args.workload, "card": torch.cuda.get_device_name(dev)}
+
+    # 0. the kernels' launches in one round
+    kernels.reset_launch_counts()
+    state, _ = trainer.step(state, pool[3])
+    sync()
+    out["launches_a_round"] = {name: n for name, n in kernels.launch_counts().items() if n}
 
     # 1. the recorder alone
     empty = {"on": [], "off": []}
